@@ -1,7 +1,7 @@
-"""nerfacc_tpu: a TPU-native NeRF acceleration toolbox (JAX/XLA/Pallas).
+"""nerfacc_tpu: a NeRF acceleration toolbox in JAX.
 
 A from-scratch re-design of the capabilities of the nerfacc toolbox
-(reference ``nerfacc/__init__.py:35-59``) for TPU: occupancy-grid
+(reference ``nerfacc/__init__.py:35-59``) for XLA: occupancy-grid
 accelerated ray marching and differentiable volumetric rendering over
 packed per-ray samples, built on static-shape fixed-capacity buffers,
 segmented scans, and jax transforms. Rays shard across chips/hosts with

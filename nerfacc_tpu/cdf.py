@@ -1,4 +1,4 @@
-"""CDF importance resampling (TPU-native).
+"""CDF importance resampling.
 
 Redesign of the reference's per-ray two-pointer merge kernel
 (``cuda/csrc/cdf.cu:7-77``) as a vectorized searchsorted over a *global*
@@ -65,9 +65,8 @@ def ray_resampling(
     N = w.shape[0]
     dl = _detect_dense_layout(ray_indices, packed_info, N, n_rays)
     if dl is not None:
-        # dense bridge: ray-major fixed-K layout -> row-op twin (the flat
-        # global-searchsorted path is ~200x slower on TPU; same
-        # semantics, docs/benchmarks.md op microbench)
+        # dense bridge: ray-major fixed-K layout -> row-op twin (same
+        # semantics as the flat global-searchsorted path)
         K, R = dl
         m2 = _flatten(masks)[0].reshape(R, K) if masks is not None else None
         s2, e2, mk2 = ray_resampling_dense(

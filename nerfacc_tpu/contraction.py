@@ -1,4 +1,4 @@
-"""Scene contractions (TPU-native, pure jnp).
+"""Scene contractions (pure jnp).
 
 Re-implements the three coordinate contractions of the reference toolbox
 (see reference ``nerfacc/contraction.py`` and
@@ -31,7 +31,7 @@ class ContractionType(enum.Enum):
     UN_BOUNDED_TANH = 1
     UN_BOUNDED_SPHERE = 2
 
-    def to_cpp_version(self):  # API parity shim; no C++ layer on TPU.
+    def to_cpp_version(self):  # API parity shim; there is no C++ layer.
         return self.value
 
 

@@ -1,10 +1,10 @@
 // Native host-side ray-batch assembly for the data loaders.
 //
 // The reference keeps whole image sets on the GPU and gathers random pixels
-// with torch indexing (examples/datasets/nerf_synthetic.py:160-189). On a
-// TPU host the equivalent jnp gather would round-trip through the device
-// interconnect for every batch; instead the images stay in host RAM and
-// this library assembles (origins, dirs, pixels) batches in one pass —
+// with torch indexing (examples/datasets/nerf_synthetic.py:160-189). Here
+// the images stay in host RAM (eager per-batch device gathers would
+// dispatch several small programs per step); this library assembles
+// (origins, dirs, pixels) batches in one pass —
 // RNG, pixel composite over the background, camera-to-world rotation and
 // normalization — writing straight into caller-provided buffers that jax
 // uploads once per step. OpenMP-parallel across the batch.

@@ -1,7 +1,8 @@
 """ctypes bridge to the native host data pipeline (csrc/raygen.cpp).
 
-Builds the shared library on first use (g++ -O3 -fopenmp, cached under
-/tmp), analogous to the reference's JIT cpp_extension fallback
+Builds the shared library on first use (g++ -O3 -fopenmp) into ``build/``
+at the root of the checkout, named by a hash of the source and the
+flags, analogous to the reference's JIT cpp_extension fallback
 (``nerfacc/cuda/_backend.py:48-84``) but with zero torch dependency.
 Falls back cleanly (``lib() is None``) if no compiler is available.
 """
@@ -18,31 +19,38 @@ from typing import Optional
 import numpy as np
 
 _SRC = Path(__file__).parent / "csrc" / "raygen.cpp"
+_BUILD = Path(__file__).resolve().parent.parent / "build"
+# the portable second set is tried when the first does not build
+_FLAGS = (
+    ["-O3", "-fopenmp", "-shared", "-fPIC"],
+    ["-O3", "-shared", "-fPIC"],
+)
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
 
 def _build() -> Optional[ctypes.CDLL]:
-    src = _SRC.read_text()
-    tag = hashlib.sha1(src.encode()).hexdigest()[:12]
-    cache = Path(os.environ.get("NERFACC_TPU_CACHE", "/tmp/nerfacc_tpu_cache"))
-    cache.mkdir(parents=True, exist_ok=True)
-    so = cache / f"raygen_{tag}.so"
-    if not so.exists():
-        cmd = [
-            "g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-            str(_SRC), "-o", str(so),
-        ]
+    src = _SRC.read_bytes()
+    so = None
+    for flags in _FLAGS:
+        tag = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
+        so = _BUILD / f"raygen_{tag}.so"
+        if so.exists():
+            break
+        _BUILD.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         try:
-            subprocess.run(cmd, check=True, capture_output=True)
+            subprocess.run(
+                ["g++", *flags, str(_SRC), "-o", str(tmp)],
+                check=True, capture_output=True,
+            )
         except (OSError, subprocess.CalledProcessError):
-            try:  # retry without openmp/march (portability)
-                subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", str(_SRC), "-o", str(so)],
-                    check=True, capture_output=True,
-                )
-            except (OSError, subprocess.CalledProcessError):
-                return None
+            so = None
+            continue
+        tmp.replace(so)  # atomic: no reader ever sees a partial library
+        break
+    if so is None:
+        return None
     lib = ctypes.CDLL(str(so))
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     lib.sample_ray_batch.argtypes = [

@@ -344,3 +344,24 @@ def write_colmap_fixture(
         _write_png(img_dir / name, np.clip(img, 0.0, 1.0))
     write_images_bin(sparse / "images.bin", entries)
     return subj
+
+
+def write_blender_fixture_in_child(root, **kwargs) -> None:
+    """:func:`write_blender_fixture` in a child process that exits before
+    this returns. The fixture is rendered with JAX; a launcher that calls
+    this never starts JAX itself, so a trainer it starts next has the
+    accelerator (and its memory) to itself."""
+    import json
+    import subprocess
+    import sys
+
+    code = (
+        "import json, sys\n"
+        "from nerfacc_tpu.datasets.fixtures import write_blender_fixture\n"
+        "write_blender_fixture(sys.argv[1], **json.loads(sys.argv[2]))\n"
+    )
+    repo = Path(__file__).resolve().parents[2]
+    subprocess.run(
+        [sys.executable, "-c", code, str(root), json.dumps(kwargs)],
+        check=True, cwd=str(repo),
+    )

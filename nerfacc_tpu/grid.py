@@ -1,7 +1,7 @@
-"""Occupancy grid (TPU-native, functional).
+"""Occupancy grid (functional).
 
 Redesign of the reference ``nerfacc/grid.py`` for JAX: the grid is an
-immutable pytree (``flax.struct.dataclass``) and the EMA update is a pure
+immutable pytree (a registered dataclass) and the EMA update is a pure
 function ``(grid, key, ...) -> grid`` that the training loop jits. The
 torch version mutates ``nn.Module`` buffers in place; here every piece of
 state is explicit, which is also what makes multi-chip replication and
@@ -24,9 +24,9 @@ statistically equivalent for the EMA.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Sequence, Tuple, Union
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -86,7 +86,8 @@ def query_grid(
     return vals
 
 
-@flax.struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class OccupancyGrid:
     """Occupancy grid state (a pytree of arrays + static metadata).
 
@@ -110,8 +111,15 @@ class OccupancyGrid:
     bits_dilated: jnp.ndarray
     bits_dilated2: jnp.ndarray
     bits_dilated4: jnp.ndarray
-    resolution: Tuple[int, int, int] = flax.struct.field(pytree_node=False)
-    contraction_type: ContractionType = flax.struct.field(pytree_node=False)
+    resolution: Tuple[int, int, int] = dataclasses.field(
+        metadata=dict(static=True)
+    )
+    contraction_type: ContractionType = dataclasses.field(
+        metadata=dict(static=True)
+    )
+
+    def replace(self, **changes) -> "OccupancyGrid":
+        return dataclasses.replace(self, **changes)
 
     @property
     def num_cells(self) -> int:
@@ -131,9 +139,9 @@ class OccupancyGrid:
     ) -> jnp.ndarray:
         """Occupancy at world-space points via the bit-table fast path.
 
-        Semantics match :func:`query_grid` on the binary grid; ~10x faster
-        on TPU for large batches (row gather vs per-element gather).
-        ``dilated`` selects the dilation radius (0 exact, 1, or 2).
+        Semantics match :func:`query_grid` on the binary grid; reads one
+        bit per cell instead of one bool. ``dilated`` selects the
+        dilation radius (0 exact, 1, 2 or 4).
         """
         res = jnp.asarray(self.resolution, dtype=jnp.int32)
         unit = contract(samples, self.roi_aabb, self.contraction_type)
@@ -253,7 +261,7 @@ def _chunked_eval(fn, x: jnp.ndarray, chunk: int = 1 << 17) -> jnp.ndarray:
     """Evaluate ``fn`` over (N, 3) points in fixed-size chunks via
     ``lax.map``. Bounds peak memory for whole-grid warmup updates (a 256^3
     grid is 16.7M points — evaluating a field with (B, G)-shaped
-    intermediates on all of them at once OOMs a 16 GB chip)."""
+    intermediates on all of them at once runs out of device memory)."""
     n = x.shape[0]
     if n <= chunk:
         return fn(x)

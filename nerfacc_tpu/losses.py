@@ -1,4 +1,4 @@
-"""Losses (TPU-native).
+"""Losses.
 
 Distortion loss (MipNeRF-360 Eq. 15). The reference materializes a dense
 (n_rays, S, S) pairwise matrix (``nerfacc/losses.py:6-32``, O(S^2) memory
@@ -8,7 +8,7 @@ term collapses to an O(S) segmented-scan form:
     sum_ij w_i w_j |m_i - m_j| = 2 * sum_i w_i * (m_i * A_i - B_i),
         A_i = sum_{j<i} w_j,   B_i = sum_{j<i} w_j m_j.
 
-This is both asymptotically cheaper and exactly what TPUs want (two
+This is both asymptotically cheaper and a better fit for XLA (two
 segmented prefix sums instead of a batched outer product).
 """
 

@@ -1,4 +1,4 @@
-"""Input encoders (flax).
+"""Input encoders.
 
 Sinusoidal positional encoding as used by vanilla NeRF (re-creation of
 reference ``examples/radiance_fields/mlp.py:168-203``). The multi-level
@@ -9,11 +9,12 @@ from __future__ import annotations
 
 import math
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from .module import Module
 
-class SinusoidalEncoder(nn.Module):
+
+class SinusoidalEncoder(Module):
     """NeRF positional encoding: ``[x, sin(2^i x), cos(2^i x)] for i in
     [min_deg, max_deg)``."""
 
@@ -28,7 +29,6 @@ class SinusoidalEncoder(nn.Module):
             int(self.use_identity) + (self.max_deg - self.min_deg) * 2
         ) * self.x_dim
 
-    @nn.compact
     def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
         if self.max_deg == self.min_deg:
             return x

@@ -1,37 +1,30 @@
 """Multiresolution hash encoding (Instant-NGP) in pure JAX.
 
-TPU-native replacement for the tcnn ``HashGrid`` encoder the reference's
-NGP example depends on (``examples/radiance_fields/ngp.py:108-126``). The
-tcnn kernel is a fused CUDA gather; on TPU the same computation is a
-batched multi-level gather + trilinear blend, which XLA lowers to dynamic
-gathers from an HBM-resident table. Design choices for TPU:
+Replacement for the tcnn ``HashGrid`` encoder the reference's NGP example
+depends on (``examples/radiance_fields/ngp.py:108-126``). The tcnn kernel
+is a fused CUDA gather with an ``atomicAdd`` backward; here the same
+computation is a batched multi-level gather + trilinear blend, which XLA
+lowers to a per-thread gather, and a scatter-add (atomic on the GPU):
 
-  * one flat (L * T, F) table: per-level offsets are added to hashed
-    indices, so the whole encode is a single gather of (N, L, 8, F);
+  * one flat feature-major table: per-level offsets are added to hashed
+    indices, so the whole encode is one gather of (N, L * 8) corners;
   * levels whose dense grid fits the table are indexed densely, exactly
     like tcnn (hashing only when (res+1)^3 > T);
   * the spatial hash is the standard xor-of-primes
     (pi_1, pi_2, pi_3) = (1, 2654435761, 805459861) masked to T-1.
 
 Both forward and backward route through
-:func:`nerfacc_tpu.ops.hash_gather.hash_encode_lookup` (``n_features == 2``),
-whose custom backward is two flat XLA scatter-adds sharing one index set
-— XLA batches them into ONE sort + segmented reduce, the measured-fastest
-exact table gradient on v5e (~39 ms at 33.5M corners; see
-``ops/hash_gather.py`` and ``docs/benchmarks.md`` round-3 numbers).
-``pallas_grad=True`` opts into the round-2 serial VMEM scatter kernel
-instead (measured ~1000x slower at training scale; kept for
-kernel-equivalence tests).
+:func:`nerfacc_tpu.ops.hash_gather.hash_encode_lookup` (``n_features`` 2
+or 4), whose custom backward produces only the table gradient.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
-
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from .module import Module
 
 _PRIMES = (1, 2654435761, 805459861)
 
@@ -45,7 +38,73 @@ def _level_resolutions(
     ).astype(np.int64)
 
 
-class HashEncoder(nn.Module):
+def hash_corners(
+    x: jnp.ndarray,
+    n_levels: int,
+    log2_hashmap_size: int,
+    base_resolution: int = 16,
+    per_level_scale: float = 1.4472692012786865,
+):
+    """Table indices and trilinear weights of the 8 corners per level.
+
+    Returns ``(flat_idx, cw)``, both (N, L*8): ``flat_idx`` indexes one
+    feature's ``(L*T,)`` slice of the flat table (level offsets added),
+    ``cw`` are the f32 corner weights (each level's 8 sum to 1).
+    """
+    L, T = n_levels, 1 << log2_hashmap_size
+    res_np = _level_resolutions(L, base_resolution, per_level_scale)
+    res = jnp.asarray(res_np, jnp.int32)  # (L,)
+    # dense indexing where the full grid fits (tcnn behavior)
+    dense = jnp.asarray((res_np + 1) ** 3 <= T)
+    # every per-corner tensor is 2-D (N, L*8): per-axis corner
+    # coordinates are computed directly in that expanded form, so no
+    # (N, L, 8) intermediate is built and reshaped
+    ox = jnp.asarray([0, 0, 0, 0, 1, 1, 1, 1], jnp.uint32)
+    oy = jnp.asarray([0, 0, 1, 1, 0, 0, 1, 1], jnp.uint32)
+    oz = jnp.asarray([0, 1, 0, 1, 0, 1, 0, 1], jnp.uint32)
+    res_row = jnp.broadcast_to(res[:, None], (L, 8)).reshape(L * 8)
+    res_row_f = res_row.astype(x.dtype)
+
+    def _axis_corner_weight(xc, oc):
+        # (N, L*8) continuous coord per corner slot, directly
+        oc_row = jnp.tile(oc, L)  # (L*8,)
+        xl = xc[:, None] * res_row_f[None, :]
+        c0 = jnp.floor(xl)
+        frac = xl - c0
+        c = jnp.clip(
+            c0.astype(jnp.int32) + oc_row.astype(jnp.int32)[None, :],
+            0,
+            res_row[None, :],
+        ).astype(jnp.uint32)
+        w = jnp.where((oc_row == 1)[None, :], frac, 1.0 - frac)
+        return c, w
+
+    cx, wx = _axis_corner_weight(x[:, 0], ox)
+    cy, wy = _axis_corner_weight(x[:, 1], oy)
+    cz, wz = _axis_corner_weight(x[:, 2], oz)
+
+    # hashed index (xor of primes) vs dense index, per level
+    hashed = (
+        cx * jnp.uint32(_PRIMES[0])
+        ^ cy * jnp.uint32(_PRIMES[1])
+        ^ cz * jnp.uint32(_PRIMES[2])
+    ) & jnp.uint32(T - 1)
+    stride = (res + 1).astype(jnp.uint32)
+    stride_row = jnp.broadcast_to(stride[:, None], (L, 8)).reshape(L * 8)
+    dense_idx = cx * (stride_row * stride_row)[None, :] + cy * stride_row[None, :] + cz
+    dense_row = jnp.broadcast_to(dense[:, None], (L, 8)).reshape(L * 8)
+    idx = jnp.where(dense_row[None, :], dense_idx, hashed)
+    level_offset = jnp.broadcast_to(
+        (jnp.arange(L, dtype=jnp.uint32) * jnp.uint32(T))[:, None], (L, 8)
+    ).reshape(L * 8)
+    flat_idx = (idx + level_offset[None, :]).astype(jnp.int32)  # (N, L*8)
+
+    # trilinear blend weight per corner
+    cw = (wx * wy * wz).astype(jnp.float32)
+    return flat_idx, cw
+
+
+class HashEncoder(Module):
     """Instant-NGP multiresolution hash encoding.
 
     Input (N, 3) in [0, 1]^3 -> output (N, n_levels * n_features).
@@ -57,115 +116,46 @@ class HashEncoder(nn.Module):
     base_resolution: int = 16
     per_level_scale: float = 1.4472692012786865
     param_dtype: jnp.dtype = jnp.float32
-    pallas_grad: bool = False  # opt-in serial Pallas scatter (see module doc)
-    # "packed" = one full-table u32 gather (round-3 default);
-    # "per_level" = L gathers over (T,) slices (round-5 experiment: the
-    # per-level-operand gather rate measured ~2.7x the full-table rate)
+    # "packed" = one full-table u32 gather of bf16 feature pairs;
+    # "per_level" = L gathers over (T,) slices of the same packed table
     gather_mode: str = "packed"
-
-    def setup(self):
-        T = 1 << self.log2_hashmap_size
-        res = _level_resolutions(
-            self.n_levels, self.base_resolution, self.per_level_scale
-        )
-        self._res = jnp.asarray(res, jnp.int32)
-        # dense indexing where the full grid fits (tcnn behavior)
-        dense = (res + 1) ** 3 <= T
-        self._dense = jnp.asarray(dense)
-        self._T = T
-        # FLAT 1-D feature-major table: [feat 0 of all levels | feat 1 |
-        # ...]. A (L*T, F) parameter tiles (8, 128) on its trailing dims
-        # -> 64x HBM (4.3 GB for the 67 MB table, plus 2x that in adam
-        # moments) and every touch moves gigabytes — the traced cause of
-        # the round-3 first-bench 4 s steps. 1-D tiles T(1024), unpadded.
-        self.table = self.param(
-            "table",
-            lambda key, shape: jax.random.uniform(
-                key, shape, minval=-1e-4, maxval=1e-4, dtype=self.param_dtype
-            ),
-            (self.n_features * self.n_levels * T,),
-        )
 
     @property
     def latent_dim(self) -> int:
         return self.n_levels * self.n_features
 
     def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        N = x.shape[0]
-        L, T, F = self.n_levels, self._T, self.n_features
-        res = self._res  # (L,)
-
-        # EVERY per-corner tensor is strictly 2-D (N, L*8). Any shape
-        # with small minor dims tile-pads on TPU: (N, L, 8, 3) was a
-        # measured 19 GB OOM (round 2), and even (N, L, 8) / (N, L, 2)
-        # intermediates forced relayout copies that made the first
-        # round-3 on-chip step 5 s (traced: 4.1 s of copy-dominated
-        # fusions). Per-axis corner coordinates are therefore computed
-        # directly in expanded (N, L*8) form — the x*res product is
-        # recomputed 8x per level, a VPU-trivial trade for zero
-        # relayouts. With L = 16 the minor dim is exactly one 128-lane
-        # row.
-        ox = jnp.asarray([0, 0, 0, 0, 1, 1, 1, 1], jnp.uint32)
-        oy = jnp.asarray([0, 0, 1, 1, 0, 0, 1, 1], jnp.uint32)
-        oz = jnp.asarray([0, 1, 0, 1, 0, 1, 0, 1], jnp.uint32)
-        res_row = jnp.broadcast_to(res[:, None], (L, 8)).reshape(L * 8)
-        res_row_f = res_row.astype(x.dtype)
-
-        def _axis_corner_weight(xc, oc):
-            # (N, L*8) continuous coord per corner slot, directly
-            oc_row = jnp.tile(oc, L)  # (L*8,)
-            xl = xc[:, None] * res_row_f[None, :]
-            c0 = jnp.floor(xl)
-            frac = xl - c0
-            c = jnp.clip(
-                c0.astype(jnp.int32) + oc_row.astype(jnp.int32)[None, :],
-                0,
-                res_row[None, :],
-            ).astype(jnp.uint32)
-            w = jnp.where((oc_row == 1)[None, :], frac, 1.0 - frac)
-            return c, w
-
-        cx, wx = _axis_corner_weight(x[:, 0], ox)
-        cy, wy = _axis_corner_weight(x[:, 1], oy)
-        cz, wz = _axis_corner_weight(x[:, 2], oz)
-
-        # hashed index (xor of primes) vs dense index, per level
-        hashed = (
-            cx * jnp.uint32(_PRIMES[0])
-            ^ cy * jnp.uint32(_PRIMES[1])
-            ^ cz * jnp.uint32(_PRIMES[2])
-        ) & jnp.uint32(T - 1)
-        stride = (res + 1).astype(jnp.uint32)
-        stride_row = jnp.broadcast_to(stride[:, None], (L, 8)).reshape(L * 8)
-        dense_idx = cx * (stride_row * stride_row)[None, :] + cy * stride_row[None, :] + cz
-        dense_row = jnp.broadcast_to(self._dense[:, None], (L, 8)).reshape(L * 8)
-        idx = jnp.where(dense_row[None, :], dense_idx, hashed)
-        level_offset = jnp.broadcast_to(
-            (jnp.arange(L, dtype=jnp.uint32) * jnp.uint32(T))[:, None], (L, 8)
-        ).reshape(L * 8)
-        flat_idx = (idx + level_offset[None, :]).astype(jnp.int32)  # (N, L*8)
-
-        # trilinear blend weight per corner
-        cw = (wx * wy * wz).astype(jnp.float32)
+        L, T, F = self.n_levels, 1 << self.log2_hashmap_size, self.n_features
+        # flat 1-D feature-major table: [feat 0 of all levels | feat 1 |
+        # ...], so each feature column is one contiguous (L*T,) slice
+        table = self.param(
+            "table",
+            lambda key, shape: jax.random.uniform(
+                key, shape, minval=-1e-4, maxval=1e-4, dtype=self.param_dtype
+            ),
+            (F * L * T,),
+        )
+        flat_idx, cw = hash_corners(
+            x, L, self.log2_hashmap_size, self.base_resolution,
+            self.per_level_scale,
+        )
 
         if F in (2, 4):
             from ..ops.hash_gather import hash_encode_lookup
 
             # (N, F*L) feature-major (a fixed permutation of the
             # reference's interleaved order; see hash_encode_lookup).
-            # F=4 runs two packed-pair gathers per corner and shares
-            # each level's backward sort across all 4 features — the
-            # capacity-preserving half-corner config is L=8/F=4
+            # F=4 runs two packed-pair gathers per corner over one index
+            # set; the capacity-preserving half-corner config is L=8/F=4
             return hash_encode_lookup(
-                self.table.astype(jnp.float32), flat_idx, cw, T,
-                self.pallas_grad,
+                table.astype(jnp.float32), flat_idx, cw, T,
                 "per_level" if self.gather_mode == "per_level" else True,
             )
-        # generic-F fallback: per-feature 1-D gathers + the same MXU
-        # corner-sum, concatenated feature-major to (N, F*L)
+        # generic-F fallback: per-feature 1-D gathers + the same
+        # corner-sum matmul, concatenated feature-major to (N, F*L)
         from ..ops.hash_gather import _corner_sum_matrix
 
-        tf = self.table.astype(jnp.float32)
+        tf = table.astype(jnp.float32)
         S = _corner_sum_matrix(L)
         return jnp.concatenate(
             [

@@ -1,10 +1,10 @@
-"""MLP radiance fields (flax re-creations of reference
+"""MLP radiance fields (re-creations of reference
 ``examples/radiance_fields/mlp.py``).
 
 Vanilla NeRF (PE 10/4 degrees, 8x256 trunk with skip, view-conditioned rgb
-branch) and the D-NeRF time-warped variant. Pure functional flax modules:
-params live in an external pytree, so replication/sharding and orbax
-checkpointing are free.
+branch) and the D-NeRF time-warped variant. Functional modules
+(:mod:`.module`): params live in an external pytree, so replication,
+sharding and checkpointing need nothing from the model.
 """
 
 from __future__ import annotations
@@ -12,36 +12,36 @@ from __future__ import annotations
 import functools
 from typing import Callable, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from .encoders import SinusoidalEncoder
+from .module import Dense, Module, initializers
 
 _dense = functools.partial(
-    nn.Dense,
-    kernel_init=nn.initializers.xavier_uniform(),
-    bias_init=nn.initializers.zeros,
+    Dense,
+    kernel_init=initializers.xavier_uniform(),
+    bias_init=initializers.zeros,
 )
 
 
-class MLP(nn.Module):
-    """Skip-connected MLP (reference ``mlp.py:14-101``)."""
+class MLP(Module):
+    """Skip-connected MLP (reference ``mlp.py:14-101``). Layers are
+    ``Dense_0 .. Dense_{net_depth}``, the last one the output layer."""
 
     output_dim: Optional[int] = None
     net_depth: int = 8
     net_width: int = 256
     skip_layer: Optional[int] = 4
-    hidden_activation: Callable = nn.relu
+    hidden_activation: Callable = jax.nn.relu
     output_enabled: bool = True
     output_activation: Callable = lambda x: x
-    output_kernel_init: Callable = nn.initializers.xavier_uniform()
+    output_kernel_init: Callable = initializers.xavier_uniform()
 
-    @nn.compact
     def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
         inputs = x
         for i in range(self.net_depth):
-            x = _dense(self.net_width)(x)
+            x = self.child(f"Dense_{i}", _dense(self.net_width))(x)
             x = self.hidden_activation(x)
             if (
                 self.skip_layer is not None
@@ -50,16 +50,19 @@ class MLP(nn.Module):
             ):
                 x = jnp.concatenate([x, inputs], axis=-1)
         if self.output_enabled:
-            x = nn.Dense(
-                self.output_dim,
-                kernel_init=self.output_kernel_init,
-                bias_init=nn.initializers.zeros,
+            x = self.child(
+                f"Dense_{self.net_depth}",
+                Dense(
+                    self.output_dim,
+                    kernel_init=self.output_kernel_init,
+                    bias_init=initializers.zeros,
+                ),
             )(x)
             x = self.output_activation(x)
         return x
 
 
-class NerfMLP(nn.Module):
+class NerfMLP(Module):
     """Trunk + sigma head + view-conditioned rgb branch
     (reference ``mlp.py:114-165``)."""
 
@@ -69,21 +72,16 @@ class NerfMLP(nn.Module):
     net_depth_condition: int = 1
     net_width_condition: int = 128
 
-    def setup(self):
-        self.base = MLP(
+    def base(self, x):
+        return self.child("base", MLP(
             net_depth=self.net_depth,
             net_width=self.net_width,
             skip_layer=self.skip_layer,
             output_enabled=False,
-        )
-        self.sigma_layer = _dense(1)
-        self.bottleneck_layer = _dense(self.net_width)
-        self.rgb_layer = MLP(
-            output_dim=3,
-            net_depth=self.net_depth_condition,
-            net_width=self.net_width_condition,
-            skip_layer=None,
-        )
+        ))(x)
+
+    def sigma_layer(self, h):
+        return self.child("sigma_layer", _dense(1))(h)
 
     def query_density(self, x):
         return self.sigma_layer(self.base(x))
@@ -97,13 +95,20 @@ class NerfMLP(nn.Module):
                     condition[..., None, :],
                     h.shape[:-1] + (condition.shape[-1],),
                 )
-            bottleneck = self.bottleneck_layer(h)
+            bottleneck = self.child(
+                "bottleneck_layer", _dense(self.net_width)
+            )(h)
             h = jnp.concatenate([bottleneck, condition], axis=-1)
-        raw_rgb = self.rgb_layer(h)
+        raw_rgb = self.child("rgb_layer", MLP(
+            output_dim=3,
+            net_depth=self.net_depth_condition,
+            net_width=self.net_width_condition,
+            skip_layer=None,
+        ))(h)
         return raw_rgb, raw_sigma
 
 
-class VanillaNeRFRadianceField(nn.Module):
+class VanillaNeRFRadianceField(Module):
     """Vanilla NeRF field (reference ``mlp.py:206-245``).
 
     Entry points (use ``model.apply(params, ..., method=...)``):
@@ -119,32 +124,32 @@ class VanillaNeRFRadianceField(nn.Module):
     net_depth_condition: int = 1
     net_width_condition: int = 128
 
-    def setup(self):
-        self.posi_encoder = SinusoidalEncoder(3, 0, 10, True)
-        self.view_encoder = SinusoidalEncoder(3, 0, 4, True)
-        self.mlp = NerfMLP(
+    @property
+    def mlp(self) -> NerfMLP:
+        return self.child("mlp", NerfMLP(
             net_depth=self.net_depth,
             net_width=self.net_width,
             skip_layer=self.skip_layer,
             net_depth_condition=self.net_depth_condition,
             net_width_condition=self.net_width_condition,
-        )
+        ))
 
     def query_opacity(self, x, step_size):
         return self.query_density(x) * step_size
 
     def query_density(self, x):
-        return nn.relu(self.mlp.query_density(self.posi_encoder(x)))
+        xe = SinusoidalEncoder(3, 0, 10, True)(x)
+        return jax.nn.relu(self.mlp.query_density(xe))
 
     def __call__(self, x, condition=None):
-        xe = self.posi_encoder(x)
+        xe = SinusoidalEncoder(3, 0, 10, True)(x)
         if condition is not None:
-            condition = self.view_encoder(condition)
+            condition = SinusoidalEncoder(3, 0, 4, True)(condition)
         rgb, sigma = self.mlp(xe, condition=condition)
-        return nn.sigmoid(rgb), nn.relu(sigma)
+        return jax.nn.sigmoid(rgb), jax.nn.relu(sigma)
 
 
-class DNeRFRadianceField(nn.Module):
+class DNeRFRadianceField(Module):
     """Time-conditioned deformation field + vanilla NeRF
     (reference ``mlp.py:248-283``).
 
@@ -157,22 +162,25 @@ class DNeRFRadianceField(nn.Module):
     warp_width: int = 64
     time_degree: int = 4
 
-    def setup(self):
-        self.posi_encoder = SinusoidalEncoder(3, 0, 4, True)
-        self.time_encoder = SinusoidalEncoder(1, 0, self.time_degree, True)
-        self.warp = MLP(
+    @property
+    def nerf(self) -> VanillaNeRFRadianceField:
+        return self.child("nerf", VanillaNeRFRadianceField())
+
+    def _warp(self, x, t):
+        warp = self.child("warp", MLP(
             output_dim=3,
             net_depth=self.warp_depth,
             net_width=self.warp_width,
             skip_layer=2,
-            output_kernel_init=nn.initializers.uniform(scale=1e-4),
-        )
-        self.nerf = VanillaNeRFRadianceField()
-
-    def _warp(self, x, t):
-        return x + self.warp(
+            output_kernel_init=initializers.uniform(scale=1e-4),
+        ))
+        return x + warp(
             jnp.concatenate(
-                [self.posi_encoder(x), self.time_encoder(t)], axis=-1
+                [
+                    SinusoidalEncoder(3, 0, 4, True)(x),
+                    SinusoidalEncoder(1, 0, self.time_degree, True)(t),
+                ],
+                axis=-1,
             )
         )
 

@@ -1,7 +1,7 @@
 """Instant-NGP radiance field in JAX (re-creation of reference
 ``examples/radiance_fields/ngp.py`` without tinycudann).
 
-Hash-grid encoder (:mod:`hash_encoding`) + small MLPs on the MXU; the
+Hash-grid encoder (:mod:`hash_encoding`) + small MLP heads; the
 truncated-exp density activation reproduces torch-ngp's ``trunc_exp``
 (clamped-exp backward, ``ngp.py:22-38``); ``contract_to_unisphere``
 matches ``ngp.py:41-63`` (the MipNeRF-360 contraction mapped to [0,1]).
@@ -12,11 +12,11 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from .hash_encoding import HashEncoder
+from .module import Dense, Module
 
 
 @jax.custom_vjp
@@ -80,21 +80,24 @@ def spherical_harmonics_deg4(d: jnp.ndarray) -> jnp.ndarray:
     )
 
 
-class _SmallMLP(nn.Module):
+class _SmallMLP(Module):
     """tcnn-FullyFusedMLP-shaped head: n_hidden x 64, relu."""
 
     out_dim: int
     n_hidden: int = 1
     width: int = 64
 
-    @nn.compact
     def __call__(self, x):
-        for _ in range(self.n_hidden):
-            x = nn.relu(nn.Dense(self.width, use_bias=False)(x))
-        return nn.Dense(self.out_dim, use_bias=False)(x)
+        for i in range(self.n_hidden):
+            x = jax.nn.relu(
+                self.child(f"Dense_{i}", Dense(self.width, use_bias=False))(x)
+            )
+        return self.child(
+            f"Dense_{self.n_hidden}", Dense(self.out_dim, use_bias=False)
+        )(x)
 
 
-class NGPRadianceField(nn.Module):
+class NGPRadianceField(Module):
     """Instant-NGP field (reference ``ngp.py:66-197``).
 
     ``aabb`` is a static 6-tuple. Density outside the (contracted) unit
@@ -108,19 +111,7 @@ class NGPRadianceField(nn.Module):
     n_levels: int = 16
     n_features: int = 2  # 4 = round-5 capacity-preserving config (L=8)
     log2_hashmap_size: int = 19
-    pallas_grad: bool = False  # opt-in serial Pallas scatter
     gather_mode: str = "packed"  # "per_level" = round-5 forward variant
-
-    def setup(self):
-        self.encoder = HashEncoder(
-            n_levels=self.n_levels,
-            n_features=self.n_features,
-            log2_hashmap_size=self.log2_hashmap_size,
-            pallas_grad=self.pallas_grad,
-            gather_mode=self.gather_mode,
-        )
-        self.mlp_base = _SmallMLP(1 + self.geo_feat_dim, n_hidden=1)
-        self.mlp_head = _SmallMLP(3, n_hidden=2)
 
     def _contract(self, x):
         aabb = jnp.asarray(self.aabb, jnp.float32)
@@ -131,7 +122,16 @@ class NGPRadianceField(nn.Module):
     def query_density(self, x, return_feat: bool = False):
         x = self._contract(x)
         selector = jnp.all((x > 0.0) & (x < 1.0), axis=-1, keepdims=True)
-        h = self.mlp_base(self.encoder(x))
+        enc = self.child("encoder", HashEncoder(
+            n_levels=self.n_levels,
+            n_features=self.n_features,
+            log2_hashmap_size=self.log2_hashmap_size,
+            gather_mode=self.gather_mode,
+        ))
+        mlp_base = self.child(
+            "mlp_base", _SmallMLP(1 + self.geo_feat_dim, n_hidden=1)
+        )
+        h = mlp_base(enc(x))
         density_before, feat = h[..., :1], h[..., 1:]
         density = trunc_exp(density_before - 1.0) * selector
         if return_feat:
@@ -148,5 +148,7 @@ class NGPRadianceField(nn.Module):
             h = jnp.concatenate([d, feat], axis=-1)
         else:
             h = feat
-        rgb = nn.sigmoid(self.mlp_head(h))
+        rgb = jax.nn.sigmoid(
+            self.child("mlp_head", _SmallMLP(3, n_hidden=2))(h)
+        )
         return rgb, density

@@ -1,21 +1,19 @@
-"""Tensor-factorized radiance field — the TPU-native Instant-NGP-class model.
+"""Tensor-factorized radiance field — an Instant-NGP-class model.
 
-Why not a hash grid on TPU: tcnn-style encoders do ~128 random 8-byte
-lookups per sample, and XLA TPU gathers cost ~3-9 ns per index (measured,
-v5e) with backward scatter-adds far worse — hundreds of ms per step at
-2^18 samples. The locality NGP gets from a hash table can instead come
-from a *tensor factorization* with a local (hat / linear-interpolation)
-basis evaluated densely:
+The locality NGP gets from a hash table can also come from a *tensor
+factorization* with a local (hat / linear-interpolation) basis evaluated
+densely:
 
     feature_r(x, y, z) = u_r(x) * v_r(y) * w_r(z)      (CP decomposition)
-    u_r(x) = hat(x) @ U[:, r]                           (dense matmul!)
+    u_r(x) = hat(x) @ U[:, r]                           (dense matmul)
 
 ``hat(x)`` is the (B, G) linear-interpolation basis — exactly 2 adjacent
-nonzeros per row, built with an iota compare (pure VPU) and contracted on
-the MXU. Gradients w.r.t. the factor tables are ``hat(x)^T @ dU`` — also a
-matmul. Zero gathers, zero scatters, in forward *and* backward; parameter
-updates remain local (each sample touches 2 rows per axis per level), which
-is what makes NGP-class models converge in ~20k steps.
+nonzeros per row, built with an iota compare and contracted by a matrix
+product. Gradients w.r.t. the factor tables are ``hat(x)^T @ dU`` — also a
+matmul. No gathers and no scatters, in forward *and* backward, at G/2
+times the FLOPs of a two-row gather; parameter updates remain local (each
+sample touches 2 rows per axis per level), which is what makes NGP-class
+models converge in ~20k steps.
 
 Multiple resolution levels (coarse-to-fine, like NGP's level pyramid) are
 concatenated. Heads mirror the reference NGP example
@@ -25,13 +23,12 @@ geometric feature, SH-deg-4 view encoding, small MLP heads.
 
 from __future__ import annotations
 
-import functools
-from typing import Tuple
+from typing import Any, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from .module import Dense, Module, initializers
 from .ngp import contract_to_unisphere, spherical_harmonics_deg4, trunc_exp
 
 
@@ -54,14 +51,14 @@ def hat_basis(x: jnp.ndarray, grid_size: int) -> jnp.ndarray:
 
 @jax.custom_vjp
 def _hat_matmul_int8(u: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
-    """``hat(u) @ table`` with the forward contraction on the int8 MXU.
+    """``hat(u) @ table`` with the forward contraction in int8.
 
     The hat basis takes values in [0, 1]; quantizing it to int8 rounds the
     interpolation weight to 1/127 of a voxel — a positional perturbation
     far below the sampling step. The table quantizes per-column to its
-    abs-max. int8 x int8 -> int32 runs the MXU at 2x the bf16 rate on
-    v5e+, and the materialized (B, G) basis operand (XLA cannot fuse
-    elementwise producers into dot operands) shrinks to 1 byte/element.
+    abs-max. An int8 x int8 -> int32 product has twice the bf16 peak rate
+    on tensor cores, and a materialized (B, G) basis operand shrinks to
+    1 byte/element.
 
     The backward is the exact bf16 formulation with f32 accumulation:
     ``d_table = hat(u)^T @ g`` (same math as autodiff of the bf16 path);
@@ -109,94 +106,82 @@ def _hat_matmul_int8_bwd(res, g):
 _hat_matmul_int8.defvjp(_hat_matmul_int8_fwd, _hat_matmul_int8_bwd)
 
 
-class CPLevel(nn.Module):
+class CPLevel(Module):
     """One CP level: 3 axis tables (G, R); features are per-axis hat-matmul
-    results multiplied elementwise.
-
-    ``use_kernel`` routes through the fused Pallas kernel
-    (:func:`nerfacc_tpu.ops.cp_level_features`) which keeps the (B, G)
-    bases in VMEM instead of round-tripping them through HBM. Measured on
-    v5e it is currently at parity with the XLA path in isolation and
-    slower inside the full train step (its grid-accumulated backward
-    serializes, and XLA streams the bf16 basis well), so the XLA path is
-    the default; the kernel stays available for further tuning."""
+    results multiplied elementwise, in ``dtype``."""
 
     grid_size: int
     rank: int
     init_scale: float = 0.2
-    use_kernel: bool = False
     quant_int8: bool = False
+    dtype: Any = jnp.bfloat16
 
-    @nn.compact
+    @jax.named_scope("cp_level")
     def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
         # x: (B, 3) in [0, 1]^3 -> (B, rank)
         tables = [
             self.param(
                 f"axis{axis}",
-                nn.initializers.normal(self.init_scale),
+                initializers.normal(self.init_scale),
                 (self.grid_size, self.rank),
             )
             for axis in range(3)
         ]
         if self.quant_int8:
-            # int8-MXU forward (2x the bf16 contraction rate, half the
-            # materialized basis bytes); exact bf16 backward — see
-            # _hat_matmul_int8. The axis-feature product stays bf16 like
-            # the default path so downstream fusions are unchanged.
+            # int8 forward contraction, exact bf16 backward — see
+            # _hat_matmul_int8. The axis-feature product stays in dtype
+            # like the default path so downstream fusions are unchanged.
             feats = None
             for axis in range(3):
                 u = _hat_matmul_int8(
                     x[:, axis] * (self.grid_size - 1), tables[axis]
-                ).astype(jnp.bfloat16)
+                ).astype(self.dtype)
                 feats = u if feats is None else feats * u
             return feats
-        if self.use_kernel:
-            from ..ops import cp_level_features_res
-
-            # residual-saving variant: backward reuses the forward's
-            # per-axis features instead of re-running 3 matmuls, and keeps
-            # the (B, R) d_u operands in VMEM (the XLA path round-trips
-            # them through HBM, ~2 ms/step at 2^19 samples)
-            return cp_level_features_res(x, *tables)
         feats = None
         for axis in range(3):
-            basis = hat_basis(x[:, axis], self.grid_size).astype(jnp.bfloat16)
-            # bf16 end to end: features feed bf16 heads anyway, and the f32
-            # (B, R) intermediates were ~15% of the train step's time
+            basis = hat_basis(x[:, axis], self.grid_size).astype(self.dtype)
+            # bf16 end to end by default: features feed bf16 heads anyway
             u = jnp.dot(
-                basis, tables[axis].astype(jnp.bfloat16),
-                preferred_element_type=jnp.bfloat16,
+                basis, tables[axis].astype(self.dtype),
+                preferred_element_type=self.dtype,
             )
             feats = u if feats is None else feats * u
         return feats
 
 
-class _HeadMLP(nn.Module):
-    """Small bf16 MLP head (tcnn-FullyFusedMLP-shaped, 64 wide)."""
+class _HeadMLP(Module):
+    """Small MLP head (tcnn-FullyFusedMLP-shaped, 64 wide), computed in
+    ``dtype`` with float32 parameters."""
 
     out_dim: int
     n_hidden: int = 1
     width: int = 64
+    dtype: Any = jnp.bfloat16
 
-    @nn.compact
     def __call__(self, x):
-        x = x.astype(jnp.bfloat16)
-        for _ in range(self.n_hidden):
-            h = nn.Dense(self.width, use_bias=False, dtype=jnp.bfloat16)(x)
-            x = nn.relu(h)
-        return nn.Dense(
-            self.out_dim, use_bias=False, dtype=jnp.bfloat16,
-            param_dtype=jnp.float32,
+        x = x.astype(self.dtype)
+        for i in range(self.n_hidden):
+            h = self.child(
+                f"Dense_{i}",
+                Dense(self.width, use_bias=False, dtype=self.dtype),
+            )(x)
+            x = jax.nn.relu(h)
+        return self.child(
+            f"Dense_{self.n_hidden}",
+            Dense(self.out_dim, use_bias=False, dtype=self.dtype),
         )(x).astype(jnp.float32)
 
 
-class TensoCPRadianceField(nn.Module):
+class TensoCPRadianceField(Module):
     """NGP-class radiance field on CP-factorized feature volumes.
 
     API-compatible with :class:`~nerfacc_tpu.models.NGPRadianceField`
     (``query_density`` / ``query_opacity`` / ``__call__``); density outside
     the (contracted) unit cube is zeroed by the selector like the reference
-    (``ngp.py:153-165``).
+    (``ngp.py:153-165``). ``compute_dtype`` is the features' and heads'
+    dtype: bf16 for training, float32 for the reference it is checked
+    against.
     """
 
     aabb: Tuple[float, ...]
@@ -204,24 +189,13 @@ class TensoCPRadianceField(nn.Module):
     use_viewdirs: bool = True
     unbounded: bool = False
     geo_feat_dim: int = 15
-    use_kernel: bool = False
     quant_int8: bool = False
     # initial log-density shift: density ~ trunc_exp(bias) at init. The
     # default -1 (density ~0.37) is fine for bounded scenes (~3 units of
     # ray path) but leaves unbounded rays (~12+ units) near-opaque at
     # init, which stalls early training — use a lower bias there.
     density_bias: float = -1.0
-
-    def setup(self):
-        self.cp_levels = [
-            CPLevel(
-                grid_size=g, rank=r, use_kernel=self.use_kernel,
-                quant_int8=self.quant_int8, name=f"level{i}",
-            )
-            for i, (g, r) in enumerate(self.levels)
-        ]
-        self.mlp_base = _HeadMLP(1 + self.geo_feat_dim, n_hidden=1)
-        self.mlp_head = _HeadMLP(3, n_hidden=2)
+    compute_dtype: Any = jnp.bfloat16
 
     def _contract(self, x):
         aabb = jnp.asarray(self.aabb, jnp.float32)
@@ -230,13 +204,30 @@ class TensoCPRadianceField(nn.Module):
         return (x - aabb[:3]) / (aabb[3:] - aabb[:3])
 
     def _encode(self, xu):
-        return jnp.concatenate([lvl(xu) for lvl in self.cp_levels], axis=-1)
+        return jnp.concatenate(
+            [
+                self.child(
+                    f"level{i}",
+                    CPLevel(
+                        grid_size=g, rank=r, quant_int8=self.quant_int8,
+                        dtype=self.compute_dtype,
+                    ),
+                )(xu)
+                for i, (g, r) in enumerate(self.levels)
+            ],
+            axis=-1,
+        )
 
     def query_density(self, x, return_feat: bool = False):
         xu = self._contract(x)
         selector = jnp.all((xu > 0.0) & (xu < 1.0), axis=-1, keepdims=True)
         xq = jnp.clip(xu, 0.0, 1.0)
-        h = self.mlp_base(self._encode(xq))
+        mlp_base = self.child(
+            "mlp_base",
+            _HeadMLP(1 + self.geo_feat_dim, n_hidden=1,
+                     dtype=self.compute_dtype),
+        )
+        h = mlp_base(self._encode(xq))
         density_before, feat = h[..., :1], h[..., 1:]
         density = trunc_exp(density_before + self.density_bias) * selector
         if return_feat:
@@ -253,5 +244,9 @@ class TensoCPRadianceField(nn.Module):
             h = jnp.concatenate([d, feat], axis=-1)
         else:
             h = feat
-        rgb = nn.sigmoid(self.mlp_head(h))
+        rgb = jax.nn.sigmoid(
+            self.child(
+                "mlp_head", _HeadMLP(3, n_hidden=2, dtype=self.compute_dtype)
+            )(h)
+        )
         return rgb, density

@@ -1,5 +1,1 @@
-"""Pallas TPU kernels for the hot ops (XLA fallback / interpret on CPU)."""
-
-from .cp_encoder import cp_level_features, cp_level_features_res
-
-__all__ = ["cp_level_features", "cp_level_features_res"]
+"""Custom-gradient ops of the hot path, in plain JAX."""

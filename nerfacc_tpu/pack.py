@@ -1,4 +1,4 @@
-"""Packed <-> dense sample-layout conversions (TPU-native, static shapes).
+"""Packed <-> dense sample-layout conversions (static shapes).
 
 The reference stores variable-length per-ray samples in flat buffers plus
 either ``ray_indices`` (sample -> ray) or ``packed_info`` (per-ray
@@ -93,9 +93,10 @@ def pack_data(
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Pack dense (n_rays, S, D) data into a flat fixed-capacity buffer.
 
-    TPU redesign of reference ``pack.py:12-43``: the output length is the
-    static capacity ``n_samples`` (default ``n_rays * S``) instead of the
-    dynamic ``mask.sum()``; a validity mask is returned alongside.
+    Static-shape redesign of reference ``pack.py:12-43``: the output
+    length is the static capacity ``n_samples`` (default ``n_rays * S``)
+    instead of the dynamic ``mask.sum()``; a validity mask is returned
+    alongside.
 
     Args:
         data: (n_rays, S, D).

@@ -1,11 +1,13 @@
 """Multi-host (multi-process) scale-out helpers.
 
-The reference is single-process (SURVEY §2.5); this is new design for the
-TPU-pod deployment model: one Python process per host, each owning its
-local chips, a single SPMD program over the global device mesh. Rays stay
+The reference is single-process (SURVEY §2.5); this is new design for a
+cluster of GPU hosts: one Python process per host, each owning its local
+GPUs, a single SPMD program over the global device mesh. Rays stay
 host-local end to end (the render path is communication-free under ray
-sharding), so DCN only carries the gradient/metric reductions — the
-host axis of :func:`psum_grads` — and the occupancy-grid ``pmax`` merge.
+sharding), so the network between hosts only carries the gradient/metric
+reductions — the host axis of :func:`psum_grads` — and the
+occupancy-grid ``pmax`` merge. Within a host the GPUs reach each other
+over NVLink, all to all.
 
 The same code paths are testable without hardware: two CPU processes with
 4 virtual devices each form a 2-host x 4-chip mesh over gloo collectives
@@ -28,11 +30,11 @@ def init_distributed(
 ) -> bool:
     """Initialize the JAX distributed runtime (multi-host).
 
-    On TPU pods, call with no arguments — the runtime autodetects the
-    coordinator and process topology from the TPU environment. For
-    CPU-process simulations (or clusters without autodetection), pass
-    ``coordinator_address='host:port'``, ``num_processes`` and
-    ``process_id`` explicitly.
+    Under a cluster manager JAX can detect (e.g. SLURM), call with no
+    arguments — the runtime reads the coordinator and process topology
+    from the environment. Everywhere else (a single machine, CPU-process
+    simulations), pass ``coordinator_address='host:port'``,
+    ``num_processes`` and ``process_id`` explicitly.
 
     Returns True when a multi-process runtime was initialized, False for
     the single-process no-op (already-initialized runtimes included).
@@ -74,8 +76,8 @@ def make_host_mesh(
     """2-D ``(hosts, chips-per-host)`` mesh over all global devices.
 
     Device order groups each process's local devices along the chip
-    axis, so ``chip`` collectives ride ICI and only the ``host`` axis
-    traverses DCN. Shard ray batches over *both* axes
+    axis, so ``chip`` collectives stay on the host's NVLink and only the
+    ``host`` axis crosses the network. Shard ray batches over *both* axes
     (``P((host_axis, chip_axis))``); reduce gradients over both — XLA
     lowers the reduction hierarchically.
 
@@ -116,7 +118,7 @@ def shard_host_batch(tree, mesh: Mesh):
 
 
 def psum_hierarchical(tree, mesh: Mesh):
-    """All-reduce over every mesh axis (chip axis over ICI, host axis
-    over DCN; XLA decomposes the reduction hierarchically). Call inside
-    ``shard_map`` over ``mesh``."""
+    """All-reduce over every mesh axis (chip axis within a host, host
+    axis across the network; XLA decomposes the reduction
+    hierarchically). Call inside ``shard_map`` over ``mesh``."""
     return jax.lax.psum(tree, axis_name=batch_axes(mesh))

@@ -5,12 +5,13 @@ module is new design. Rays are embarrassingly parallel and packed samples
 never cross a ray boundary, so the whole render path runs with **zero
 communication** under a ray-sharded layout:
 
-  * mesh: 1-D ``('data',)`` over all chips (multi-host included — same
-    program, DCN traversed transparently by the collectives);
+  * mesh: 1-D ``('data',)`` over all devices (multi-host included — same
+    program; the GPUs of one host are joined all to all by NVLink, so the
+    mesh needs no shape beyond the algorithm's one axis);
   * ray batches sharded on 'data'; radiance-field params + occupancy grid
     replicated;
-  * the only collectives: ``psum`` of field gradients / losses (over ICI),
-    and a ``pmax`` merge for occupancy-grid EMA updates.
+  * the only collectives: ``psum`` of field gradients / losses, and a
+    ``pmax`` merge for occupancy-grid EMA updates (NCCL on GPUs).
 
 ``data_parallel`` wraps a per-shard step function with ``shard_map`` so the
 inner segment-scan machinery sees purely local buffers (local ray count,
@@ -25,11 +26,6 @@ from typing import Callable, Optional, Sequence
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-try:  # jax>=0.4.35 moved shard_map out of experimental
-    from jax.sharding import shard_map  # type: ignore[attr-defined]
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 
 def make_mesh(
@@ -56,7 +52,7 @@ def shard_batch(tree, mesh: Mesh, axis: str = "data"):
 
 
 def psum_grads(grads, axis="data"):
-    """All-reduce gradients over the mesh axis (rides ICI). ``axis`` may
+    """All-reduce gradients over the mesh axis. ``axis`` may
     be a tuple of axis names for hierarchical host x chip meshes
     (see :mod:`nerfacc_tpu.parallel.multihost`)."""
     return jax.lax.psum(grads, axis_name=axis)
@@ -99,12 +95,12 @@ def data_parallel(
             P(axis) if i in set(batched_args) else P()
             for i in range(len(args))
         )
-        return shard_map(
+        return jax.shard_map(
             step_fn,
             mesh=mesh,
             in_specs=in_specs,
             out_specs=out_specs if n_out > 1 else out_specs[0],
-            check_rep=False,
+            check_vma=False,
         )(*args)
 
     return jax.jit(wrapper)
@@ -121,11 +117,11 @@ def update_grid_distributed(
     """Occupancy-grid EMA update under data parallelism (call inside
     ``shard_map``; the grid is replicated).
 
-    Each chip samples a *different* cell subset (the PRNG key is folded
-    with the chip's mesh index), evaluates the local field replica, and the
+    Each device samples a *different* cell subset (the PRNG key is folded
+    with the device's mesh index), evaluates the local field replica, and the
     per-cell EMA estimates merge with a ``pmax`` — matching the reference's
     ``occs = max(occs * decay, occ)`` semantics (``grid.py:232``) while
-    multiplying the effective cells-per-update by the chip count. The only
+    multiplying the effective cells-per-update by the device count. The only
     other collective in training remains the gradient ``psum``.
     """
     from ..grid import update_grid, with_binary

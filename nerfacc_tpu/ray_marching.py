@@ -1,15 +1,13 @@
-"""Occupancy-grid accelerated ray marching (TPU-native, static shapes).
+"""Occupancy-grid accelerated ray marching (static shapes).
 
 Redesign of the reference sampler (``nerfacc/ray_marching.py`` +
 ``cuda/csrc/ray_marching.cu``). The CUDA version runs a per-ray serial DDA
 while-loop, counts samples, syncs to host, allocates exact-size buffers and
 re-marches. That count-then-allocate pattern is hostile to XLA (dynamic
-shapes + host sync), the serial per-ray loop is hostile to the VPU, and —
-measured on v5e — per-element gathers/scatters run ~9 ns/element, so any
-"mask 4M candidates then scatter-compact" formulation is gather-bound.
+shapes + host sync), and a serial per-ray loop does not vectorize.
 
-TPU formulation (everything dense, zero scatters, only VMEM-table row
-gathers):
+Static-shape formulation (everything dense, zero scatters, only
+bit-table row gathers):
 
   1. *Generate* a candidate lattice ``t[k]`` per ray with the exact step
      recurrence of the reference (``calc_dt``: ``dt = clamp(t * cone,
@@ -202,6 +200,7 @@ def _lattice_k(
     return jnp.where(t <= tA, kA, jnp.where(t <= tB, kB, kC))
 
 
+@jax.named_scope("slot_select")
 def select_slots(
     valid: jnp.ndarray, k_slots: int, decimate: bool = True
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
@@ -209,11 +208,11 @@ def select_slots(
     has more than K live entries and ``decimate`` — every s-th one
     (s = ceil(count / K)), so the slots always *cover* the live range.
 
-    The stream-compaction primitive, reformulated for TPU: position of the
-    rank-t live candidate = rank search over the row's running count. Runs
-    as (a) a row cumsum, (b) a tiny dense chunk-rank reduce, (c) one
-    VMEM-table row gather of the target 128-wide chunk, (d) an in-chunk
-    dense rank reduce. No sort / nonzero / scatter anywhere.
+    The stream-compaction primitive, reformulated with static shapes:
+    position of the rank-t live candidate = rank search over the row's
+    running count. Runs as (a) a row cumsum, (b) a tiny dense chunk-rank
+    reduce, (c) one row gather of the target 128-wide chunk, (d) an
+    in-chunk dense rank reduce. No sort / nonzero / scatter anywhere.
 
     Args:
         valid: (R, S) bool.
@@ -263,6 +262,7 @@ def select_slots(
     return jnp.minimum(pos, S - 1), ok, scale
 
 
+@jax.named_scope("slot_select")
 def select_slots_grouped(
     live_per_group: jnp.ndarray,
     group_size: Union[int, jnp.ndarray],
@@ -305,8 +305,8 @@ def select_slots_grouped(
 def gather_rows_dense(vals: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """``vals[r, idx[r, j]]`` per row via a one-hot reduce (no gather).
 
-    For (R, K<=128) sources this dense formulation beats XLA's per-element
-    gather by orders of magnitude on TPU.
+    A dense formulation for small (R, K<=128) sources; whether it beats a
+    plain ``take_along_axis`` gather on the GPU is not measured.
 
     Args:
         vals: (R, S) values (S expected modest, e.g. a slot axis).
@@ -324,6 +324,7 @@ def gather_rows_dense(vals: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     return jnp.sum(jnp.where(onehot, vals[:, None, :], zero), axis=2)
 
 
+@jax.named_scope("probe")
 def probe_live_groups(
     rays_o: jnp.ndarray,
     rays_d: jnp.ndarray,
@@ -410,7 +411,6 @@ def march_rays(
     probe_dilation: int = 1,
     exact_recheck: bool = True,
     probe_groups: Optional[int] = None,
-    use_pallas: Optional[bool] = None,
 ) -> RaySegments:
     """Grid-accelerated marching into a dense (n_rays, K) slot layout.
 
@@ -430,16 +430,6 @@ def march_rays(
     arrays via :func:`select_slots_grouped` — the sample sets match the
     C=1 path exactly up to dilation positives, which the per-slot exact
     re-check removes.
-
-    ``use_pallas=True`` runs the fused selection + lattice kernel
-    (:mod:`nerfacc_tpu.ops.march_select`) on the grouped path instead of
-    the unfused XLA op chain; numerically identical, one program instead
-    of the region's many small fusions. Default (auto) is the XLA chain:
-    measured on v5e at the 16384-ray bench workload, the XLA path is
-    ~2% faster end-to-end (21.87M vs 21.49M samples/s) — XLA cannot fuse
-    elementwise work *across* the Pallas custom call, and the collateral
-    fusion breakage around it costs more than the kernel saves
-    (docs/benchmarks.md, round-2 measurements).
     """
     n_rays = rays_o.shape[0]
     S, K, C = max_samples_per_ray, slots_per_ray, coarse_stride
@@ -465,18 +455,6 @@ def march_rays(
             S,
         ).astype(jnp.int32)
         _, group_size = _probe_layout(k_in, S, C, probe_groups)
-        if use_pallas:
-            from .ops.march_select import fused_select_grouped
-
-            t_starts, t_ends, deltas, ok = fused_select_grouped(
-                live_g, group_size, t_min,
-                k_slots=K, step_size=render_step_size,
-                cone_angle=cone_angle, dt_max=dt_max,
-            )
-            return _finish_segments(
-                rays_o, rays_d, t_starts, t_ends, deltas, ok, grid,
-                exact_recheck=C > 1 and exact_recheck,
-            )
         pos, ok, scale = select_slots_grouped(live_g, group_size, K)
     else:
         k = jnp.arange(S, dtype=jnp.float32)[None, :]
@@ -500,36 +478,39 @@ def march_rays(
             xyz = rays_o[:, None, :] + t_mid[..., None] * rays_d[:, None, :]
             valid = valid & grid.query_occ_fast(xyz)
         pos, ok, scale = select_slots(valid, K)  # (R, K)
-    t_starts = _lattice_t(
-        t_min[:, None], pos.astype(jnp.float32), render_step_size, cone_angle, dt_max
-    )
-    t_ends = _lattice_t(
-        t_min[:, None],
-        pos.astype(jnp.float32) + 1.0,
-        render_step_size,
-        cone_angle,
-        dt_max,
-    )
-    # Exact group width in closed form: with cone_angle > 0 the later
-    # intervals in a decimation s-group are geometrically larger, so
-    # (t_ends - t_starts) * scale would under-cover the group's range.
-    # Identical to that expression when cone_angle == 0 or scale == 1.
-    deltas = (
-        _lattice_t(
+    with jax.named_scope("slot_select"):
+        t_starts = _lattice_t(
+            t_min[:, None], pos.astype(jnp.float32), render_step_size,
+            cone_angle, dt_max,
+        )
+        t_ends = _lattice_t(
             t_min[:, None],
-            (pos + scale).astype(jnp.float32),
+            pos.astype(jnp.float32) + 1.0,
             render_step_size,
             cone_angle,
             dt_max,
         )
-        - t_starts
-    )
+        # Exact group width in closed form: with cone_angle > 0 the later
+        # intervals in a decimation s-group are geometrically larger, so
+        # (t_ends - t_starts) * scale would under-cover the group's range.
+        # Identical to that expression when cone_angle == 0 or scale == 1.
+        deltas = (
+            _lattice_t(
+                t_min[:, None],
+                (pos + scale).astype(jnp.float32),
+                render_step_size,
+                cone_angle,
+                dt_max,
+            )
+            - t_starts
+        )
     return _finish_segments(
         rays_o, rays_d, t_starts, t_ends, deltas, ok, grid,
         exact_recheck=grid is not None and C > 1 and exact_recheck,
     )
 
 
+@jax.named_scope("recheck")
 def _finish_segments(
     rays_o, rays_d, t_starts, t_ends, deltas, masks, grid, exact_recheck
 ) -> RaySegments:
@@ -549,9 +530,8 @@ def _finish_segments(
     )
 
 
-def reselect_visible(
-    segs: RaySegments, k2: int, use_pallas: Optional[bool] = None
-) -> RaySegments:
+@jax.named_scope("reselect")
+def reselect_visible(segs: RaySegments, k2: int) -> RaySegments:
     """Stage-2 re-selection: re-pack each ray's live samples into ``k2``
     slots (the reference's cull-then-render recompaction,
     ``ray_marching.py:216-220`` — there a boolean-mask gather, here a
@@ -562,20 +542,7 @@ def reselect_visible(
     masked-delta cumsum from its own start to the next group's start
     (the total for the last live group) — exact even when the source
     deltas are themselves widened.
-
-    ``use_pallas=True`` runs the fused kernel
-    (:func:`nerfacc_tpu.ops.march_select.fused_reselect`) instead of the
-    select + gather + width-algebra op chain (default: the XLA chain —
-    measured faster end-to-end on v5e, see
-    :func:`march_rays_grouped`'s note).
     """
-    if use_pallas:
-        from .ops.march_select import fused_reselect
-
-        ts2, te2, dt2, ok2 = fused_reselect(
-            segs.masks, segs.t_starts, segs.t_ends, segs.deltas, k2=k2
-        )
-        return RaySegments(t_starts=ts2, t_ends=te2, deltas=dt2, masks=ok2)
     pos2, ok2, _ = select_slots(segs.masks, k2)
     d_live = jnp.where(segs.masks, segs.deltas, 0.0)
     cd = jnp.cumsum(d_live, axis=1)  # inclusive
@@ -732,7 +699,7 @@ def ray_marching(
     render_step_size: float = 1e-3,
     stratified: bool = False,
     cone_angle: float = 0.0,
-    # TPU static-shape controls
+    # static-shape controls
     key: Optional[jax.Array] = None,
     max_samples_per_ray: int = 512,
     samples_budget: Optional[int] = None,
@@ -742,7 +709,6 @@ def ray_marching(
     probe_dilation: int = 1,
     probe_groups: Optional[int] = None,
     exact_recheck: bool = True,
-    use_pallas: Optional[bool] = None,
 ) -> PackedSamples:
     """March rays with empty/occluded-space skipping (reference
     ``ray_marching.py:13-222``), flat packed output.
@@ -751,7 +717,7 @@ def ray_marching(
     ``t_min``/``t_max`` > ``scene_aabb`` intersection > ``[0, 1e10]``, then
     near/far clamping; stratified jitter adds ``U[0,1) * step`` to t_min.
 
-    TPU-specific args:
+    Static-shape args:
         key: PRNG key, required when ``stratified=True`` (replaces the
             reference's global torch RNG).
         max_samples_per_ray: static candidate-lattice length S.
@@ -802,7 +768,6 @@ def ray_marching(
         probe_dilation=probe_dilation,
         probe_groups=probe_groups,
         exact_recheck=exact_recheck,
-        use_pallas=use_pallas,
     )
 
     # visibility culling (reference ray_marching.py:192-220)
@@ -826,7 +791,7 @@ def ray_marching(
         segs = segs._replace(masks=segs.masks & vis)
         if visible_samples_budget is not None:
             K2 = min(K, max(1, -(-visible_samples_budget // n_rays)))
-            segs = reselect_visible(segs, K2, use_pallas=use_pallas)
+            segs = reselect_visible(segs, K2)
 
     return _flatten_segments(segs)
 

@@ -1,4 +1,4 @@
-"""Proposal-network sampling (TPU-native, dense layout).
+"""Proposal-network sampling (dense layout).
 
 The reference ships this only as a non-functional sketch
 (``nerfacc/sampling.py`` — it calls unbound CUDA symbols, SURVEY §2.1);

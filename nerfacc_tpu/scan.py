@@ -5,7 +5,7 @@ loops ("naive") and CUB ``DeviceScan::Exclusive{Sum,Scan}ByKey`` keyed by
 ``ray_indices`` ("CUB", ``cuda/csrc/render_transmittance_cub.cu:19-37``).
 The CUB formulation is the XLA-native one: a segmented exclusive scan is
 two global cumsums plus one segment-sum, all of which XLA compiles to
-efficient parallel scans on TPU. There is no naive/CUB duality here — one
+parallel scans. There is no naive/CUB duality here — one
 implementation serves both entry points.
 
 Layout contract (everywhere in this package):
@@ -102,7 +102,7 @@ def exclusive_segment_cumprod(
     (``render_transmittance_cub.cu:28-37``) used for
     transmittance-from-alpha. Implemented with the classic segmented-scan
     operator under ``lax.associative_scan`` — exact products (no log/exp
-    roundtrip), parallel on TPU.
+    roundtrip), parallel.
     """
     acc_dtype = jnp.promote_types(x.dtype, jnp.float32)
     xa = x.astype(acc_dtype)

@@ -5,7 +5,7 @@
 steps; ``render_image`` chunks a full image through it for evaluation
 (reference ``utils.py:79-106``: 8192-ray eval chunks).
 
-TPU layout note: the hot path is *dense* — samples live in an
+Layout note: the hot path is *dense* — samples live in an
 (n_rays, slots_per_ray) grid, so field positions come from broadcasting
 (never ``rays_o[ray_indices]`` gathers), transmittance is a row cumsum,
 and accumulation is a row reduction. See ``ray_marching.march_rays``.
@@ -38,7 +38,7 @@ def make_field_fns(field, params, rays_o, rays_d, timestamps=None):
     (``examples/utils.py:50-76``) over a batch of rays — flat packed
     variant (callbacks take ``(t_starts, t_ends, ray_indices)``).
 
-    ``field`` is a flax module exposing ``query_density`` and ``__call__``;
+    ``field`` is a module exposing ``query_density`` and ``__call__``;
     for D-NeRF fields both take a time argument (per-ray ``timestamps``).
     """
 
@@ -80,9 +80,10 @@ def _dense_positions(rays_o, rays_d, t_starts, t_ends):
     return rays_o[:, None, :] + t_mid[..., None] * rays_d[:, None, :]
 
 
+@jax.named_scope("field")
 def _dense_field_query(field, params, x, rays_d=None, timestamps=None,
                        density_only=False):
-    """Query a flax radiance field at dense (R, K, 3) positions."""
+    """Query a radiance field at dense (R, K, 3) positions."""
     R, K = x.shape[:2]
     xf = x.reshape(R * K, 3)
     if density_only:
@@ -101,6 +102,7 @@ def _dense_field_query(field, params, x, rays_d=None, timestamps=None,
     return rgbs.reshape(R, K, 3), sigmas.reshape(R, K)
 
 
+@jax.named_scope("field")
 def _compact_field_query(
     field, params, rays_o, rays_d, t_starts, t_ends, masks, m_budget,
     timestamps=None, density_only=False,
@@ -191,7 +193,6 @@ def render_rays(
     aux=None,
     return_compact=False,
     probe_groups=None,
-    use_pallas=None,
 ):
     """Render one ray batch: march (no grad) + composite (with grad).
 
@@ -227,9 +228,8 @@ def render_rays(
     selection, as ``(colors, opacities, depths, n_samples, sel)`` with
     ``sel = {"ray_indices", "ray_ok", "aux"}``. Losses over the full batch
     can be recovered algebraically (non-hit rays render exactly
-    ``render_bkgd``): see ``bench.py``. TPU note: the expand is 3 row
-    scatters whose serial scalar-core index chains cost ~1.5 ms/step at
-    16k rays — the training loop never needs them.
+    ``render_bkgd``): see ``bench.py``. The skipped expand is 3 row
+    scatters the training loop never needs.
     """
     n_rays = rays_o.shape[0]
     if stratified and key is None:
@@ -262,10 +262,8 @@ def render_rays(
         posr, okr, _ = select_slots(hit[None, :], H, decimate=False)
         ridx, ray_ok = posr[0], okr[0]
         ray_sel = (ridx, ray_ok)
-        # ONE fused row gather for every per-ray quantity: each separate
-        # gather pays a serial scalar-core index-normalization chain
-        # (~150 ns/row on v5e), so 6 gathers -> 1 saves ~1 ms/step. Counts
-        # (<= C) and timestamps are exact in f32.
+        # ONE fused row gather for every per-ray quantity instead of six
+        # separate gathers. Counts (<= C) and timestamps are exact in f32.
         G_ = live_g.shape[1]
         parts = [rays_o, rays_d, t_min[:, None], t_max[:, None],
                  live_g.astype(jnp.float32)]
@@ -300,7 +298,6 @@ def render_rays(
         probe_dilation=probe_dilation,
         exact_recheck=exact_recheck,
         probe_groups=probe_groups,
-        use_pallas=use_pallas,
     )
     if ray_sel is not None:
         segs = segs._replace(masks=segs.masks & ray_sel[1][:, None])
@@ -334,9 +331,7 @@ def render_rays(
         )
         masks = segs.masks & vis
         K2 = min(K, max(1, -(-visible_samples_budget // n_rays)))
-        segs = reselect_visible(
-            segs._replace(masks=masks), K2, use_pallas=use_pallas
-        )
+        segs = reselect_visible(segs._replace(masks=masks), K2)
 
     # grad-tracked field query + composite
     t_starts = jax.lax.stop_gradient(segs.t_starts)
@@ -344,11 +339,9 @@ def render_rays(
     deltas = jax.lax.stop_gradient(segs.deltas)
     if field_samples_budget is not None:
         # live-sample compaction: evaluate the field only on march-live
-        # slots (gather-bound encoders pay per slot, live or dead — the
-        # hash-NGP path measured ~40% slot occupancy at bench shapes;
-        # see ops/sample_compact.py). MXU-cheap fields should leave this
-        # off: the glue costs more than the dead-lane FLOPs (measured
-        # round 2 on the two-stage variant).
+        # slots (gather-bound encoders pay per slot, live or dead; see
+        # ops/sample_compact.py). Matmul-cheap fields may do better with
+        # it off: the glue can cost more than the dead-lane FLOPs.
         rgbs, sigmas, masks, field_dropped = _compact_field_query(
             field, params, rays_o, rays_d, t_starts, t_ends, segs.masks,
             field_samples_budget, timestamps=timestamps,
@@ -370,17 +363,20 @@ def render_rays(
             early_stop_eps=early_stop_eps, alpha_thre=alpha_thre,
         )
         masks = masks & vis
-    weights = render_weight_from_density_dense(
-        t_starts, t_starts + deltas, sigmas, masks=masks
-    )
-    colors = accumulate_along_rays_dense(weights, values=rgbs, masks=masks)
-    opacities = accumulate_along_rays_dense(weights, masks=masks)
-    t_mid = (t_starts + t_ends) * 0.5
-    depths = accumulate_along_rays_dense(
-        weights, values=t_mid[..., None], masks=masks
-    )
-    if render_bkgd is not None:
-        colors = colors + render_bkgd * (1.0 - opacities)
+    with jax.named_scope("composite"):
+        weights = render_weight_from_density_dense(
+            t_starts, t_starts + deltas, sigmas, masks=masks
+        )
+        colors = accumulate_along_rays_dense(
+            weights, values=rgbs, masks=masks
+        )
+        opacities = accumulate_along_rays_dense(weights, masks=masks)
+        t_mid = (t_starts + t_ends) * 0.5
+        depths = accumulate_along_rays_dense(
+            weights, values=t_mid[..., None], masks=masks
+        )
+        if render_bkgd is not None:
+            colors = colors + render_bkgd * (1.0 - opacities)
 
     if return_compact:
         ridx, ray_ok = ray_sel if ray_sel is not None else (

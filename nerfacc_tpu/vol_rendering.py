@@ -1,4 +1,4 @@
-"""Differentiable volumetric rendering over packed samples (TPU-native).
+"""Differentiable volumetric rendering over packed samples.
 
 Re-implements the reference's rendering math (``nerfacc/vol_rendering.py``,
 ``cuda/csrc/render_transmittance*.cu``, ``render_weight.cu``) as segmented
@@ -64,9 +64,9 @@ def _reshape_like(x, had_last_dim):
     return x[:, None] if had_last_dim else x
 
 
-# The flat (parity-API) segmented-scan path is 7-200x slower than the
-# dense row-op twins on TPU (docs/benchmarks.md op microbench) — segment
-# ops pay per-sample gathers where the dense layout pays row cumsums.
+# The flat (parity-API) segmented-scan path pays per-sample gathers where
+# the dense row-op twins pay row cumsums (its cost on the GPU is not
+# measured).
 # When the packed layout provably IS a flat view of a dense ray-major
 # (n_rays, K) buffer — iota-like ray_indices, or packed_info rows
 # [r*K, K] — the flat entry points silently reroute to the dense twin
@@ -249,7 +249,7 @@ _weight_from_alpha.defvjp(_weight_from_alpha_fwd, _weight_from_alpha_bwd)
 # ---------------------------------------------------------------------------
 # Dense (n_rays, K) fast path: one ray per row, so the reference's segmented
 # scans collapse to plain row cumsums — no segment ids, no gathers. This is
-# the layout the TPU marcher emits (ray_marching.march_rays) and the one the
+# the layout the marcher emits (ray_marching.march_rays) and the one the
 # training hot loop uses.
 # ---------------------------------------------------------------------------
 

@@ -26,7 +26,7 @@ which is exactly the per-view-inconsistent radiance a collapse smells
 like. This script quantifies that ceiling per (cone, S).
 
 Usage: python scripts/diag_360.py [--r_env 1000] [--views 2]
-Reference behavior: /root/reference/examples/train_ngp_nerf.py:87-94
+Reference behavior: reference examples/train_ngp_nerf.py:87-94
 (unbounded marching config), cuda/csrc/ray_marching.cu:139-161 (calc_dt
 cone recurrence — unbounded per-ray while loop, NO sample cap).
 """

@@ -25,7 +25,7 @@ sys.path.insert(0, str(REPO))
 SECTIONS = [
     ("nerfacc_tpu", "Package exports",
      "Everything importable from `nerfacc_tpu` directly — the reference's "
-     "21 exports plus the dense twins and TPU-specific helpers."),
+     "21 exports plus the dense twins and static-shape helpers."),
     ("nerfacc_tpu.grid", "Occupancy grid", None),
     ("nerfacc_tpu.ray_marching", "Ray marching", None),
     ("nerfacc_tpu.vol_rendering", "Volume rendering", None),

@@ -2,7 +2,7 @@
 
 The reference's headline anchor is NGP x Lego: 800x800, 100 train views,
 20k steps -> 35.50 PSNR / 287 s on a TITAN RTX
-(``/root/reference/docs/source/examples/ngp.rst:25-36``). The actual
+(reference ``docs/source/examples/ngp.rst:25-36``). The actual
 NeRF-Synthetic download was attempted this round and the box has ZERO
 egress — recorded verbatim (2026-08-20):
 
@@ -15,7 +15,9 @@ egress — recorded verbatim (2026-08-20):
 
 Fallback (this script): a FULL-PROTOCOL on-disk blender fixture of the
 analytic procedural scene — 800x800, 100 train views, 8 test views,
-rendered on-device — driven through the REAL loader + the REAL CLI at
+rendered in a child process that exits before training starts, so the
+trainer has the accelerator to itself — driven through the REAL loader +
+the REAL CLI at
 the reference's protocol scale (20k steps, 2^18-sample dynamic batches).
 Everything except the pixels themselves matches the reference protocol;
 the per-scene table row this produces is the honest stand-in the
@@ -36,7 +38,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-FIXTURE = Path("/tmp/nerfsynth800v2/procedural")
+FIXTURE = REPO / "build" / "fixtures" / "nerfsynth800" / "procedural"
 
 
 def ensure_fixture(height=800, width=800, n_train=100, n_test=8):
@@ -46,10 +48,10 @@ def ensure_fixture(height=800, width=800, n_train=100, n_test=8):
         if len(meta["frames"]) == n_train:
             print(f"fixture exists: {FIXTURE}", flush=True)
             return
-    from nerfacc_tpu.datasets.fixtures import write_blender_fixture
+    from nerfacc_tpu.datasets.fixtures import write_blender_fixture_in_child
 
     t0 = time.perf_counter()
-    write_blender_fixture(
+    write_blender_fixture_in_child(
         FIXTURE.parent, n_train=n_train, n_val=0, n_test=n_test,
         height=height, width=width, hemisphere=True,
     )

@@ -1,18 +1,14 @@
-"""Op-level micro-benchmark harness (TPU-native).
+"""Op-level micro-benchmark harness.
 
 Replaces the reference's ``scripts/run_profiler.py`` (torch.profiler
 around fwd+bwd of weight-from-density at 81,920 rays) with a
 ``block_until_ready`` timing harness plus optional ``jax.profiler`` trace
 capture for xprof/tensorboard.
 
-    python scripts/run_profiler.py [--trace /tmp/jax_trace] [--ops all]
+    python scripts/run_profiler.py [--trace DIR] [--ops all]
 """
 
 from __future__ import annotations
-
-import os
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 
 import argparse
 import sys
@@ -47,6 +43,9 @@ class Timer:
 
 
 def main():
+    from nerfacc_tpu.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--n_rays", type=int, default=81920)
     p.add_argument("--samples_per_ray", type=int, default=16)

@@ -1,7 +1,7 @@
 """Quality benchmark: train-to-PSNR on the self-contained procedural scene.
 
 Runs the example training CLIs at fixed configs and reports PSNR +
-wall-clock per config as JSON lines — the TPU analogue of the reference's
+wall-clock per config as JSON lines — the analogue of the reference's
 published benchmark tables (``docs/source/examples/*.rst``; its scenes
 need dataset downloads, the procedural scene does not).
 

@@ -15,9 +15,9 @@ Prints the trainer's output; exits nonzero if PSNR <= 25.
 """
 
 import argparse
+import shutil
 import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
@@ -31,10 +31,13 @@ def main():
     ap.add_argument("--image_size", type=int, default=96)
     args = ap.parse_args()
 
-    from nerfacc_tpu.datasets.fixtures import write_blender_fixture
+    from nerfacc_tpu.datasets.fixtures import write_blender_fixture_in_child
 
-    root = Path(tempfile.mkdtemp(prefix="blender_drill_"))
-    write_blender_fixture(
+    # rendered in a child process: this launcher never starts JAX, so the
+    # trainer below has the accelerator to itself
+    root = REPO / "build" / "fixtures" / "blender_drill"
+    shutil.rmtree(root, ignore_errors=True)
+    write_blender_fixture_in_child(
         root, n_train=24, n_test=4,
         height=args.image_size, width=args.image_size,
     )

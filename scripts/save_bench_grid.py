@@ -15,11 +15,6 @@ training pass; re-run this script to regenerate it.
 
 from __future__ import annotations
 
-import os
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
 import argparse
 import functools
 import sys
@@ -34,6 +29,7 @@ import numpy as np
 import optax
 
 from nerfacc_tpu import create_grid, update_grid
+from nerfacc_tpu.compile_cache import setup_compile_cache
 from nerfacc_tpu.datasets import ProceduralScene
 from nerfacc_tpu.models import TensoCPRadianceField
 from nerfacc_tpu.utils import render_rays
@@ -46,6 +42,7 @@ def main():
     ap.add_argument("--out", type=str,
                     default=str(REPO / "bench_assets" / "trained_grid.npz"))
     args = ap.parse_args()
+    setup_compile_cache()
 
     scene = ProceduralScene(n_views=24, width=128, height=128)
     aabb = tuple(float(v) for v in np.asarray(scene.aabb))

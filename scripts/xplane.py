@@ -1,197 +1,160 @@
-"""Minimal XLA profiler-trace (xplane.pb) parser and op-time aggregator.
+"""Device time per layer from a ``jax.profiler`` trace.
 
-``jax.profiler.trace`` writes `XSpace` protos
-(`plugins/profile/<ts>/<host>.xplane.pb`), but reading them normally needs
-`tensorboard_plugin_profile`, which is not installed here. This decodes the
-protobuf wire format directly against a hand-written schema of the XPlane
-messages (tensorflow/tsl/profiler/protobuf/xplane.proto) — ~100 lines, no
-codegen, no extra deps.
+    python scripts/xplane.py TRACE_DIR [--steps N] [--top K]
 
-Replaces the reference's `scripts/run_profiler.py` torch.profiler harness
-role (reference `scripts/run_profiler.py:12-51`) for the "where did the
-step time go" question.
-
-Usage:
-    python scripts/xplane.py [trace.xplane.pb] [--plane SUBSTR] [--top N]
-                             [--no-merge]   # keep fusion.NNN ids separate
-
-With no path, picks the newest ``/tmp/jax_trace/**/*.xplane.pb``.
-Prints per-plane (device) op-time aggregation grouped by event name.
+Reads the newest ``*.xplane.pb`` under ``TRACE_DIR`` with
+``jax.profiler.ProfileData`` and sums the durations of the kernels on each
+GPU plane. Each kernel is attributed to a layer by the ``jax.named_scope``
+in the HLO ``op_name`` metadata of the instruction it runs (``probe``,
+``slot_select``, ``cp_level``, ``hash_table_grad``, ...), read from the
+optimized HLO text that ``bench.py --trace`` writes beside the trace
+(``TRACE_DIR/*.hlo.txt``); a fusion gets the layer most of its fused
+instructions carry. ``bwd`` marks kernels under ``transpose(...)``, the
+backward pass. Also prints the window, the busy time (union of kernel
+intervals) and the idle share. Times are per step when ``--steps`` is
+given. Library kernels (cuBLAS) launched from a command buffer carry no
+instruction name; run the traced program with
+``XLA_FLAGS=--xla_gpu_enable_command_buffer=`` to attribute them too.
 """
 
 from __future__ import annotations
 
+import argparse
+import collections
 import glob
 import os
-import struct
+import re
 import sys
-from collections import defaultdict
+
+# most specific first: a name stack can hold several of these
+LAYERS = (
+    "hash_table_grad", "hash_encode", "cp_level", "reselect", "slot_select",
+    "recheck", "probe", "compact", "composite", "field", "optimizer",
+)
+
+_INSTR = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=\s*(.*)$")
+_COMP = re.compile(r"^\s*(?:ENTRY\s+)?%?([\w.\-]+)\s*(?:\(.*\))?.*\{\s*$")
+_OPNAME = re.compile(r'op_name="([^"]*)"')
+_CALLS = re.compile(r"calls=%?([\w.\-]+)")
 
 
-# ---------------------------------------------------------------- wire format
-def _varint(buf: memoryview, i: int):
-    r = 0
-    s = 0
-    while True:
-        b = buf[i]
-        i += 1
-        r |= (b & 0x7F) << s
-        if not b & 0x80:
-            return r, i
-        s += 7
+def layer_of(op_name: str) -> str:
+    for layer in LAYERS:
+        if re.search(rf"(^|[/(]){layer}([/)]|$)", op_name):
+            return layer
+    return "other"
 
 
-def fields(buf: memoryview):
-    """Yield (field_number, wire_type, value) over one message buffer."""
-    i, n = 0, len(buf)
-    while i < n:
-        tag, i = _varint(buf, i)
-        fnum, wt = tag >> 3, tag & 7
-        if wt == 0:  # varint
-            v, i = _varint(buf, i)
-        elif wt == 1:  # 64-bit
-            v = struct.unpack_from("<Q", buf, i)[0]
-            i += 8
-        elif wt == 2:  # length-delimited
-            ln, i = _varint(buf, i)
-            v = buf[i : i + ln]
-            i += ln
-        elif wt == 5:  # 32-bit
-            v = struct.unpack_from("<I", buf, i)[0]
-            i += 4
-        else:
-            raise ValueError(f"unsupported wire type {wt}")
-        yield fnum, wt, v
-
-
-def _map_entry(buf: memoryview):
-    k = v = None
-    for fnum, _, val in fields(buf):
-        if fnum == 1:
-            k = val
-        elif fnum == 2:
-            v = val
-    return k, v
-
-
-# ------------------------------------------------------------------- messages
-def parse_event(buf):  # XEvent
-    ev = {"metadata_id": 0, "duration_ps": 0, "offset_ps": 0, "occurrences": 1}
-    for fnum, _, v in fields(buf):
-        if fnum == 1:
-            ev["metadata_id"] = v
-        elif fnum == 2:
-            ev["offset_ps"] = v
-        elif fnum == 3:
-            ev["duration_ps"] = v
-        elif fnum == 5:
-            ev["occurrences"] = v
-    return ev
-
-
-def parse_line(buf):  # XLine
-    line = {"name": "", "events": []}
-    for fnum, _, v in fields(buf):
-        if fnum == 2:
-            line["name"] = bytes(v).decode("utf-8", "replace")
-        elif fnum == 11:
-            line["display_name"] = bytes(v).decode("utf-8", "replace")
-        elif fnum == 4:
-            line["events"].append(parse_event(v))
-    return line
-
-
-def parse_event_metadata(buf):  # XEventMetadata
-    md = {"name": ""}
-    for fnum, _, v in fields(buf):
-        if fnum == 2:
-            md["name"] = bytes(v).decode("utf-8", "replace")
-        elif fnum == 4:
-            md["display_name"] = bytes(v).decode("utf-8", "replace")
-    return md
-
-
-def parse_plane(buf):  # XPlane
-    plane = {"name": "", "lines": [], "event_metadata": {}}
-    for fnum, _, v in fields(buf):
-        if fnum == 2:
-            plane["name"] = bytes(v).decode("utf-8", "replace")
-        elif fnum == 3:
-            plane["lines"].append(parse_line(v))
-        elif fnum == 4:
-            k, mv = _map_entry(v)
-            if mv is not None:
-                plane["event_metadata"][k] = parse_event_metadata(mv)
-    return plane
-
-
-def parse_space(data: bytes):  # XSpace
-    return [parse_plane(v) for fnum, _, v in fields(memoryview(data)) if fnum == 1]
-
-
-# ------------------------------------------------------------------ reporting
-def aggregate(plane, merge_fusion_ids=True):
-    """Sum event durations by op name across the plane's lines."""
-    agg = defaultdict(lambda: [0.0, 0])  # name -> [ps, count]
-    md = plane["event_metadata"]
-    for line in plane["lines"]:
-        for ev in line["events"]:
-            m = md.get(ev["metadata_id"], {})
-            name = m.get("display_name") or m.get("name") or str(ev["metadata_id"])
-            if merge_fusion_ids:
-                # fusion.123 / fusion.45 -> fusion.* buckets by op kind
-                base = name.split(".")[0]
-                name = base if base else name
-            a = agg[name]
-            a[0] += ev["duration_ps"]
-            a[1] += max(1, ev.get("occurrences", 1))
-    return agg
-
-
-def main(argv):
-    path = None
-    plane_filter = None
-    top = 30
-    merge = True
-    args = list(argv)
-    while args:
-        a = args.pop(0)
-        if a == "--plane":
-            plane_filter = args.pop(0)
-        elif a == "--top":
-            top = int(args.pop(0))
-        elif a == "--no-merge":
-            merge = False
-        else:
-            path = a
-    if path is None or os.path.isdir(path):
-        root = path or "/tmp/jax_trace"
-        cands = sorted(
-            glob.glob(f"{root}/**/*.xplane.pb", recursive=True),
-            key=os.path.getmtime,
+def parse_hlo(text: str) -> dict:
+    """Instruction name -> (layer, is_backward), by majority over the
+    instruction's own op_name and those of the computations it calls."""
+    own, calls, comp_ops = {}, {}, collections.defaultdict(list)
+    comp = None
+    for line in text.splitlines():
+        m = _INSTR.match(line)
+        if m and "=" in line.split("{")[0]:
+            name, rest = m.groups()
+            ops = _OPNAME.findall(rest)
+            own[name] = ops
+            if comp is not None:
+                comp_ops[comp].extend(ops)
+            c = _CALLS.search(rest)
+            if c:
+                calls[name] = c.group(1)
+            continue
+        m = _COMP.match(line)
+        if m:
+            comp = m.group(1)
+    out = {}
+    for name, ops in own.items():
+        ops = ops + comp_ops.get(calls.get(name), [])
+        if not ops:
+            continue
+        votes = collections.Counter(
+            (layer_of(o), "transpose(" in o) for o in ops
         )
-        if not cands:
-            print(f"no trace found under {root}", file=sys.stderr)
-            return 1
-        path = cands[-1]
-    print(f"# {path}")
-    with open(path, "rb") as f:
-        planes = parse_space(f.read())
-    for plane in planes:
-        if plane_filter and plane_filter not in plane["name"]:
+        out[name] = votes.most_common(1)[0][0]
+    return out
+
+
+def reduce_trace(path: str, hlo: dict, top: int = 15) -> dict:
+    from jax.profiler import ProfileData
+
+    pd = ProfileData.from_file(path)
+    result = {}
+    for plane in pd.planes:
+        if "/device:GPU" not in plane.name:
             continue
-        agg = aggregate(plane, merge_fusion_ids=merge)
-        total_ps = sum(v[0] for v in agg.values())
-        if not total_ps:
+        per = collections.defaultdict(float)
+        unattributed = collections.Counter()
+        intervals = []
+        for line in plane.lines:
+            for ev in line.events:
+                dur = ev.duration_ns
+                intervals.append((ev.start_ns, ev.start_ns + dur))
+                # the event's HLO instruction; inside a command buffer
+                # (CUDA graph) only the kernel name, which is the fusion's
+                # name with "." -> "_", says which instruction ran
+                op = str(dict(ev.stats).get("hlo_op", ""))
+                name = str(ev.name)
+                key = (hlo.get(op) or hlo.get(name)
+                       or hlo.get(re.sub(r"_(\d+)$", r".\1", name)))
+                if key is None:
+                    per[("other", False)] += dur
+                    unattributed[ev.name] += dur
+                else:
+                    per[key] += dur
+        if not intervals:
             continue
-        n_lines = len(plane["lines"])
-        print(f"\n== plane: {plane['name']}  ({n_lines} lines, "
-              f"{total_ps / 1e9:.3f} ms total)")
-        rows = sorted(agg.items(), key=lambda kv: -kv[1][0])[:top]
-        for name, (ps, cnt) in rows:
-            print(f"  {ps / 1e9:9.3f} ms  {cnt:6d}x  {ps / total_ps * 100:5.1f}%  {name[:90]}")
+        intervals.sort()
+        busy, cur_s, cur_e = 0.0, *intervals[0]
+        for s, e in intervals[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        busy += cur_e - cur_s
+        window = max(e for _, e in intervals) - intervals[0][0]
+        result[plane.name] = {
+            "layers": dict(per), "busy_ns": busy, "window_ns": window,
+            "unattributed": unattributed.most_common(top),
+        }
+    return result
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trace_dir")
+    ap.add_argument("--steps", type=int, default=1)
+    ap.add_argument("--top", type=int, default=10)
+    args = ap.parse_args(argv)
+    paths = sorted(
+        glob.glob(f"{args.trace_dir}/**/*.xplane.pb", recursive=True),
+        key=os.path.getmtime,
+    )
+    if not paths:
+        print(f"no trace under {args.trace_dir}", file=sys.stderr)
+        return 1
+    hlo = {}
+    for f in glob.glob(f"{args.trace_dir}/*.hlo.txt"):
+        with open(f) as fh:
+            hlo.update(parse_hlo(fh.read()))
+    res = reduce_trace(paths[-1], hlo, args.top)
+    n = max(args.steps, 1)
+    for plane, r in res.items():
+        print(f"== {plane}: window {r['window_ns'] / n / 1e6:.3f} ms/step, "
+              f"busy {r['busy_ns'] / n / 1e6:.3f} ms/step, idle share "
+              f"{1 - r['busy_ns'] / r['window_ns']:.4f}")
+        total = sum(r["layers"].values())
+        for (layer, bwd), ns in sorted(r["layers"].items(),
+                                       key=lambda kv: -kv[1]):
+            print(f"  {layer:16s} {'bwd' if bwd else 'fwd'} "
+                  f"{ns / n / 1e6:9.4f} ms/step  {100 * ns / total:5.1f}%")
+        for name, ns in r["unattributed"]:
+            print(f"    unattributed {ns / n / 1e6:9.4f} ms/step  {name[:80]}")
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main(sys.argv[1:]))
+    raise SystemExit(main())

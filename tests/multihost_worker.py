@@ -4,7 +4,7 @@ invocation; see tests/test_multihost.py).
 Each process owns 4 virtual CPU devices; together they form a
 2-host x 4-chip mesh over gloo collectives — the standard JAX way to
 exercise the multi-host code paths (init_distributed, host x chip mesh,
-process-local batch sharding, hierarchical psum) without a TPU pod.
+process-local batch sharding, hierarchical psum) without a cluster.
 
 Runs a real sharded render + gradient step on a tiny Vanilla field and
 prints the psum'd loss; the parent test compares ranks against the
@@ -36,11 +36,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
-
-try:
-    from jax.sharding import shard_map
-except ImportError:
-    from jax.experimental.shard_map import shard_map
 
 from nerfacc_tpu import create_grid
 from nerfacc_tpu.models import VanillaNeRFRadianceField
@@ -101,11 +96,11 @@ def main():
 
     spec_b = P(batch_axes(mesh))
     step = jax.jit(
-        shard_map(
+        jax.shard_map(
             shard_step, mesh=mesh,
             in_specs=(P(), P(), spec_b, spec_b, spec_b),
             out_specs=(P(), P()),
-            check_rep=False,
+            check_vma=False,
         )
     )
     loss, grads = step(params, grid, *batch)

@@ -4,7 +4,7 @@ BASELINE.json's north star is "forward/backward verified allclose against
 reference rendered images + pixel gradients". The reference's CUDA cannot
 run here, but its serial per-ray algorithms are ~200 lines of portable
 math. This module transliterates their *behavior* (not their code) into
-numpy so the TPU pipeline can be checked against an independent oracle:
+numpy so the JAX pipeline can be checked against an independent oracle:
 
   * ``ray_marching``        — the per-ray DDA while-loop with occupancy
                               skip (reference ``cuda/csrc/ray_marching.cu:81-192``,

@@ -5,6 +5,7 @@ import tempfile
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from nerfacc_tpu import create_grid, update_grid
 from nerfacc_tpu.checkpoint import CheckpointManager
@@ -45,3 +46,34 @@ def test_checkpoint_roundtrip():
     )
     chex_equal(restored["grid"].occs, grid.occs)
     assert int(restored["step"]) == 123
+
+
+def test_checkpoint_keeps_newest_max_to_keep(tmp_path):
+    mgr = CheckpointManager(str(tmp_path), max_to_keep=2)
+    for step in (1, 2, 3, 4):
+        mgr.save(step, {"w": jnp.full((3,), float(step)), "step": step})
+    assert mgr.all_steps() == [3, 4]
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "ckpt_3.npz", "ckpt_4.npz",
+    ]
+    template = {"w": jnp.zeros((3,)), "step": 0}
+    assert int(mgr.restore(template)["step"]) == 4
+    old = mgr.restore(template, step=3)
+    np.testing.assert_array_equal(np.asarray(old["w"]), 3.0)
+    assert isinstance(old["step"], int)
+
+
+def test_checkpoint_save_replaces_atomically(tmp_path):
+    """A save writes a temporary file and renames it over the final name:
+    re-saving a step replaces it whole, no temporary is left behind, and
+    a temporary left by a crashed save is never taken for a checkpoint."""
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(5, {"w": jnp.zeros((2,))})
+    mgr.save(5, {"w": jnp.ones((2,))})
+    (tmp_path / "ckpt_9.npz.tmp").write_bytes(b"truncated")
+    assert mgr.latest_step() == 5
+    assert not list(tmp_path.glob("ckpt_5*.tmp"))
+    got = mgr.restore({"w": jnp.zeros((2,))})
+    np.testing.assert_array_equal(np.asarray(got["w"]), 1.0)
+    with pytest.raises(ValueError, match="does not match"):
+        mgr.restore({"v": jnp.zeros((2,))})

@@ -3,13 +3,13 @@
 A user porting reference code calls the flat (packed) API; when the
 packed layout provably is a flat view of a dense ray-major fixed-K
 buffer (iota-like ``ray_indices`` or ``packed_info`` rows ``[r*K, K]``),
-the flat entry points reroute to the dense row-op twins (7-200x faster
-on TPU, docs/benchmarks.md op microbench). These tests pin: detection
+the flat entry points reroute to the dense row-op twins (row cumsums
+instead of per-sample gathers). These tests pin: detection
 (positive and negative), exactness of the rerouted result against the
 forced segmented path, and that traced (jit) calls skip the value-based
 check without error.
 
-Reference call shapes matched: ``/root/reference/nerfacc/
+Reference call shapes matched: reference ``nerfacc/
 vol_rendering.py:201-449`` (ray_indices/packed_info kwargs).
 """
 

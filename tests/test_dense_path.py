@@ -1,4 +1,4 @@
-"""Tests for the TPU fast-path primitives: bit-table lookups, slot
+"""Tests for the static-shape fast-path primitives: bit-table lookups, slot
 selection (stream compaction without scatters), dense-row gathering, and
 the dense (n_rays, K) rendering path — checked against the flat segmented
 reference implementations."""

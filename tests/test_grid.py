@@ -46,3 +46,32 @@ def test_grid_ema_decay():
     # now the field goes empty: occs decay by 0.95 per update
     grid = update_grid(grid, key, step=16, occ_eval_fn=lambda x: jnp.zeros((x.shape[0], 1)))
     assert np.allclose(np.asarray(grid.occs), 0.95)
+
+
+def test_grid_pytree_roundtrip_under_jit():
+    """OccupancyGrid is a pytree of its arrays; resolution and contraction
+    type are static metadata that survive jit and select the trace."""
+    grid = create_grid([0, 0, 0, 1, 1, 1], resolution=(8, 8, 4),
+                       contraction_type=ContractionType.UN_BOUNDED_SPHERE)
+    leaves, treedef = jax.tree_util.tree_flatten(grid)
+    assert len(leaves) == 7  # roi, occs, binary and the four bit tables
+    back = jax.tree_util.tree_unflatten(treedef, leaves)
+    assert back.resolution == (8, 8, 4)
+    assert back.contraction_type == ContractionType.UN_BOUNDED_SPHERE
+
+    traces = []
+
+    @jax.jit
+    def bump(g):
+        traces.append(g.resolution)
+        return g.replace(occs=g.occs + 1.0)
+
+    out = bump(grid)
+    assert out.resolution == (8, 8, 4)
+    assert out.contraction_type == ContractionType.UN_BOUNDED_SPHERE
+    np.testing.assert_array_equal(np.asarray(out.occs), 1.0)
+    np.testing.assert_array_equal(np.asarray(out.binary),
+                                  np.asarray(grid.binary))
+    bump(out)  # same static fields: no retrace
+    bump(create_grid([0, 0, 0, 1, 1, 1], resolution=4))  # new static fields
+    assert traces == [(8, 8, 4), (4, 4, 4)]

@@ -3,12 +3,14 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from nerfacc_tpu.models import (
     DNeRFRadianceField,
     HashEncoder,
     NGPRadianceField,
     SinusoidalEncoder,
+    TensoCPRadianceField,
     VanillaNeRFRadianceField,
     trunc_exp,
 )
@@ -49,7 +51,7 @@ def test_trunc_exp_grad_clamped():
 def test_trunc_exp_forward_clamp_divergence_boundary():
     """Pin the DOCUMENTED parity divergence from the reference
     (round-4 VERDICT weak #2): the reference clamps only the backward
-    (``/root/reference/examples/radiance_fields/ngp.py:22-38`` — forward
+    (reference ``examples/radiance_fields/ngp.py:22-38`` — forward
     is plain ``exp``); we clamp the forward at 30 as well, because an
     overflowed ``inf`` density poisons masked-slot math in the dense
     layout (``inf * 0 = NaN``; measured blowing up the unbounded
@@ -272,10 +274,8 @@ def test_tensocp_int8_matches_float_path():
 def test_ngp_hash_field_trains_end_to_end():
     """NGP hash-grid field through the full differentiable render path:
     a few optimizer steps on procedural GT rays must reduce the loss and
-    move the hash table via the encoder's table gradient (XLA
-    sort-scatter — the round-3 default that drives bench.py --model ngp
-    on chip; the round-2 serial Pallas scatter survives as the opt-in
-    ``pallas_grad=True`` equivalence reference).
+    move the hash table via the encoder's table gradient (the custom-VJP
+    scatter-add of ``ops/hash_gather.py``).
 
     Covers the one NGP path no other test trains: field -> render_rays
     -> loss -> table/MLP grads -> adam. Reference workload:
@@ -351,14 +351,14 @@ def test_hash_per_level_gather_mode_matches_packed():
     )
     cw = jnp.asarray(rng.rand(N, L * 8).astype(np.float32))
 
-    out_p = hash_encode_lookup(table, flat_idx, cw, T, False, True)
-    out_l = hash_encode_lookup(table, flat_idx, cw, T, False, "per_level")
+    out_p = hash_encode_lookup(table, flat_idx, cw, T, True)
+    out_l = hash_encode_lookup(table, flat_idx, cw, T, "per_level")
     np.testing.assert_allclose(
         np.asarray(out_l), np.asarray(out_p), rtol=1e-6, atol=1e-7
     )
 
     def loss(t, mode):
-        return jnp.sum(hash_encode_lookup(t, flat_idx, cw, T, False, mode) ** 2)
+        return jnp.sum(hash_encode_lookup(t, flat_idx, cw, T, mode) ** 2)
 
     g_p = jax.grad(lambda t: loss(t, True))(table)
     g_l = jax.grad(lambda t: loss(t, "per_level"))(table)
@@ -372,8 +372,6 @@ def test_hash_f4_custom_path_matches_generic():
     L=8/F=4): the packed-pair custom-VJP path must match the generic
     per-feature-gather fallback (autodiff backward) in forward values
     (to bf16 table-read precision) and table gradients."""
-    import flax.linen as nn
-
     from nerfacc_tpu.models.hash_encoding import HashEncoder
 
     rng = np.random.RandomState(0)
@@ -421,3 +419,193 @@ def test_hash_f4_custom_path_matches_generic():
         np.asarray(g4), np.asarray(jnp.concatenate([g01, g23])),
         rtol=1e-5, atol=1e-6,
     )
+
+
+def _xavier(fan_in, fan_out):
+    return ("xavier", (6.0 / (fan_in + fan_out)) ** 0.5)
+
+
+def _lecun(fan_in):
+    return ("lecun", fan_in ** -0.5)
+
+
+_AABB = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0)
+_X, _D, _T = jnp.zeros((4, 3)), jnp.zeros((4, 3)), jnp.zeros((4, 1))
+
+# field -> init args -> {param path: (shape, initializer)}
+PARAM_TREES = {
+    "vanilla": (
+        lambda: VanillaNeRFRadianceField(
+            net_depth=2, net_width=64, net_width_condition=32),
+        (_X, _D),
+        {
+            "mlp/base/Dense_0/kernel": ((63, 64), _xavier(63, 64)),
+            "mlp/base/Dense_0/bias": ((64,), ("zeros",)),
+            "mlp/base/Dense_1/kernel": ((64, 64), _xavier(64, 64)),
+            "mlp/base/Dense_1/bias": ((64,), ("zeros",)),
+            "mlp/sigma_layer/kernel": ((64, 1), _xavier(64, 1)),
+            "mlp/sigma_layer/bias": ((1,), ("zeros",)),
+            "mlp/bottleneck_layer/kernel": ((64, 64), _xavier(64, 64)),
+            "mlp/bottleneck_layer/bias": ((64,), ("zeros",)),
+            "mlp/rgb_layer/Dense_0/kernel": ((91, 32), _xavier(91, 32)),
+            "mlp/rgb_layer/Dense_0/bias": ((32,), ("zeros",)),
+            "mlp/rgb_layer/Dense_1/kernel": ((32, 3), _xavier(32, 3)),
+            "mlp/rgb_layer/Dense_1/bias": ((3,), ("zeros",)),
+        },
+    ),
+    "dnerf_warp": (
+        lambda: DNeRFRadianceField(),
+        (_X, _T, _D),
+        {
+            "warp/Dense_0/kernel": ((36, 64), _xavier(36, 64)),
+            "warp/Dense_1/kernel": ((64, 64), _xavier(64, 64)),
+            "warp/Dense_2/kernel": ((64, 64), _xavier(64, 64)),
+            # skip after layer 2: 64 + the 36 encoded inputs
+            "warp/Dense_3/kernel": ((100, 64), _xavier(100, 64)),
+            "warp/Dense_3/bias": ((64,), ("zeros",)),
+            "warp/Dense_4/kernel": ((64, 3), ("uniform", 0.0, 1e-4)),
+            "nerf/mlp/base/Dense_7/kernel": ((256, 256), _xavier(256, 256)),
+            "nerf/mlp/rgb_layer/Dense_1/kernel": ((128, 3), _xavier(128, 3)),
+        },
+    ),
+    "ngp": (
+        lambda: NGPRadianceField(aabb=_AABB, n_levels=4, log2_hashmap_size=12),
+        (_X, _D),
+        {
+            "encoder/table": ((2 * 4 * 4096,), ("uniform", -1e-4, 1e-4)),
+            "mlp_base/Dense_0/kernel": ((8, 64), _lecun(8)),
+            "mlp_base/Dense_1/kernel": ((64, 16), _lecun(64)),
+            "mlp_head/Dense_0/kernel": ((31, 64), _lecun(31)),
+            "mlp_head/Dense_1/kernel": ((64, 64), _lecun(64)),
+            "mlp_head/Dense_2/kernel": ((64, 3), _lecun(64)),
+        },
+    ),
+    "ngp_f4": (
+        lambda: NGPRadianceField(aabb=_AABB, n_levels=2, n_features=4,
+                                 log2_hashmap_size=12),
+        (_X, _D),
+        {
+            "encoder/table": ((4 * 2 * 4096,), ("uniform", -1e-4, 1e-4)),
+            "mlp_base/Dense_0/kernel": ((8, 64), _lecun(8)),
+            "mlp_base/Dense_1/kernel": ((64, 16), _lecun(64)),
+            "mlp_head/Dense_0/kernel": ((31, 64), _lecun(31)),
+            "mlp_head/Dense_1/kernel": ((64, 64), _lecun(64)),
+            "mlp_head/Dense_2/kernel": ((64, 3), _lecun(64)),
+        },
+    ),
+    "tensorf": (
+        lambda: TensoCPRadianceField(aabb=_AABB, levels=((64, 32), (128, 32))),
+        (_X, _D),
+        {
+            **{f"level0/axis{a}": ((64, 32), ("normal", 0.2))
+               for a in range(3)},
+            **{f"level1/axis{a}": ((128, 32), ("normal", 0.2))
+               for a in range(3)},
+            "mlp_base/Dense_0/kernel": ((64, 64), _lecun(64)),
+            "mlp_base/Dense_1/kernel": ((64, 16), _lecun(64)),
+            "mlp_head/Dense_0/kernel": ((31, 64), _lecun(31)),
+            "mlp_head/Dense_1/kernel": ((64, 64), _lecun(64)),
+            "mlp_head/Dense_2/kernel": ((64, 3), _lecun(64)),
+        },
+    ),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PARAM_TREES))
+def test_param_tree_names_shapes_and_init(name):
+    """Each field's parameter tree: the names and shapes checkpoints and
+    callers rely on, float32 leaves, and each leaf's initializer told apart
+    by its statistics (xavier-uniform and uniform bounds, lecun-normal and
+    normal(0.2) spread, zero biases)."""
+    make, args, want = PARAM_TREES[name]
+    params = make().init(jax.random.PRNGKey(0), *args)
+    assert list(params) == ["params"]
+    flat = {
+        "/".join(k.key for k in path): np.asarray(v)
+        for path, v in jax.tree_util.tree_leaves_with_path(params["params"])
+    }
+    if name != "dnerf_warp":  # checked in part: the nerf trunk is 8x256
+        assert set(flat) == set(want)
+    for path, (shape, init) in want.items():
+        v = flat[path]
+        assert v.shape == shape and v.dtype == np.float32, path
+        kind = init[0]
+        if kind == "zeros":
+            assert not v.any(), path
+        elif kind == "uniform":
+            assert init[1] <= v.min() and v.max() <= init[2], path
+            assert v.std() > 0.2 * (init[2] - init[1]), path
+        elif kind == "xavier":
+            assert np.abs(v).max() <= init[1], path
+            assert v.std() > 0.4 * init[1], path
+        else:  # normal / lecun: spread within a factor of the target
+            target = init[1]
+            assert 0.6 * target < v.std() < 1.4 * target, path
+
+
+@pytest.mark.parametrize("n_features", [2, 4])
+def test_hash_custom_vjp_matches_plain_gather(n_features):
+    """hash_encode_lookup's custom backward (per-level scatter-adds)
+    against autodiff of the plain float32 gather; forward with f32 table
+    reads equal, with packed bf16 reads within bf16 rounding."""
+    from nerfacc_tpu.models.hash_encoding import hash_corners
+    from nerfacc_tpu.ops.hash_gather import (
+        hash_encode_lookup,
+        hash_encode_reference,
+    )
+
+    L, log2_t = 4, 9
+    T = 1 << log2_t
+    rng = np.random.RandomState(n_features)
+    table = jnp.asarray(rng.uniform(-1, 1, n_features * L * T), jnp.float32)
+    x = jnp.asarray(rng.rand(256, 3), jnp.float32)
+    flat_idx, cw = hash_corners(x, L, log2_t, base_resolution=4)
+    g = jnp.asarray(rng.randn(256, n_features * L), jnp.float32)
+
+    def vjp(fn, *extra):
+        out, pull = jax.vjp(
+            lambda t: fn(t, flat_idx, cw, T, *extra), table
+        )
+        return out, pull(g)[0]
+
+    ref_out, ref_grad = vjp(hash_encode_reference)
+    packed_out, grad = vjp(hash_encode_lookup)
+    if n_features == 2:  # f32 reads exist for the pair layout only
+        f32_out, _ = vjp(hash_encode_lookup, False)
+        np.testing.assert_allclose(np.asarray(f32_out), np.asarray(ref_out),
+                                   rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(packed_out), np.asarray(ref_out),
+                               atol=2.0 ** -8)
+    np.testing.assert_allclose(np.asarray(grad), np.asarray(ref_grad),
+                               rtol=1e-5, atol=1e-6)
+    assert float(jnp.abs(grad).max()) > 0
+
+
+def test_module_apply_methods_and_missing_params():
+    """apply takes a bound method, a function or a method name; reading a
+    parameter that is not in the tree is an error, not a silent init."""
+    field = VanillaNeRFRadianceField(net_depth=1, net_width=8)
+    x = jnp.ones((3, 3))
+    params = field.init(jax.random.PRNGKey(0), x, x)
+    a = field.apply(params, x, method=field.query_density)
+    b = field.apply(params, x, method="query_density")
+    c = field.apply(params, x, method=VanillaNeRFRadianceField.query_density)
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(c))
+    del params["params"]["mlp"]["sigma_layer"]
+    with pytest.raises(KeyError, match="sigma_layer"):
+        field.apply(params, x, method="query_density")
+
+
+def test_module_init_is_reproducible_and_key_dependent():
+    field = NGPRadianceField(aabb=_AABB, n_levels=2, log2_hashmap_size=10)
+    p1 = field.init(jax.random.PRNGKey(5), _X, _D)
+    p2 = field.init(jax.random.PRNGKey(5), _X, _D)
+    p3 = field.init(jax.random.PRNGKey(6), _X, _D)
+    for a, b, c in zip(jax.tree.leaves(p1), jax.tree.leaves(p2),
+                       jax.tree.leaves(p3)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        assert not np.array_equal(np.asarray(a), np.asarray(c))
+    # field modules are hashable values (static arguments of jit)
+    assert hash(field) == hash(NGPRadianceField(
+        aabb=_AABB, n_levels=2, log2_hashmap_size=10))

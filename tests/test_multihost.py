@@ -5,9 +5,9 @@ DCN), run a sharded render + gradient psum through the real code paths
 and must agree with the single-process reference bit-for-bit in loss.
 
 This is the standard JAX pattern for testing multi-host programs without
-a pod; the same program runs on real hosts with init_distributed()
-autodetection (SURVEY §2.5 TPU-equivalent plan; the reference has no
-multi-node anything)."""
+a cluster; the same program runs on real hosts with init_distributed()
+(SURVEY §2.5 distribution plan; the reference has no multi-node
+anything)."""
 
 import socket
 import subprocess

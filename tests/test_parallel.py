@@ -10,11 +10,6 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-try:
-    from jax.sharding import shard_map
-except ImportError:
-    from jax.experimental.shard_map import shard_map
-
 from nerfacc_tpu import create_grid
 from nerfacc_tpu.models import VanillaNeRFRadianceField
 from nerfacc_tpu.parallel import make_mesh
@@ -55,11 +50,11 @@ def test_sharded_render_matches_single_device():
     ref_c, ref_o, ref_d = jax.jit(local_render)(params, grid, rays_o, rays_d)
 
     sharded = jax.jit(
-        shard_map(
+        jax.shard_map(
             local_render, mesh=mesh,
             in_specs=(P(), P(), P("data"), P("data")),
             out_specs=(P("data"), P("data"), P("data")),
-            check_rep=False,
+            check_vma=False,
         )
     )
     params_r = jax.device_put(params, NamedSharding(mesh, P()))
@@ -154,11 +149,11 @@ def test_sharded_train_step_matches_single_device_bench_shapes():
         return loss, colors, grads
 
     stepped = jax.jit(
-        shard_map(
+        jax.shard_map(
             sharded_step, mesh=mesh,
             in_specs=(P(), P(), P("data"), P("data"), P("data")),
             out_specs=(P(), P("data"), P()),
-            check_rep=False,
+            check_vma=False,
         )
     )
     rep = NamedSharding(mesh, P())
@@ -251,11 +246,11 @@ def test_sharded_grads_identical_data_control():
         return loss, grads
 
     stepped = jax.jit(
-        shard_map(
+        jax.shard_map(
             sharded_step, mesh=mesh,
             in_specs=(P(), P(), P("data"), P("data"), P("data")),
             out_specs=(P(), P()),
-            check_rep=False,
+            check_vma=False,
         )
     )
     rep = NamedSharding(mesh, P())
@@ -299,9 +294,9 @@ def test_update_grid_distributed_merges_more_cells():
         )
 
     merged = jax.jit(
-        shard_map(
+        jax.shard_map(
             shard_fn, mesh=mesh, in_specs=(P(), P()), out_specs=P(),
-            check_rep=False,
+            check_vma=False,
         )
     )(
         jax.device_put(grid0, NamedSharding(mesh, P())),
@@ -368,9 +363,9 @@ def test_update_grid_distributed_honors_fixed_threshold():
         )
 
     merged = jax.jit(
-        shard_map(
+        jax.shard_map(
             shard_fn, mesh=mesh, in_specs=(P(), P()), out_specs=P(),
-            check_rep=False,
+            check_vma=False,
         )
     )(
         jax.device_put(grid0, NamedSharding(mesh, P())),
@@ -386,10 +381,10 @@ def test_update_grid_distributed_honors_fixed_threshold():
     assert int(single_adaptive.binary.sum()) > 0
 
 
-def test_sharded_render_with_fused_march_kernels():
-    """The fused Pallas march kernels compose with shard_map: each shard
-    runs its own kernel instance on its local ray block (interpret mode
-    on the CPU mesh; identical program on real chips)."""
+def test_sharded_render_with_strided_probes():
+    """The strided-probe march (grouped slot selection + exact re-check)
+    composes with shard_map: each shard marches its local ray block and
+    the result equals the single-device render."""
     mesh = make_mesh()
 
     n_rays = 64
@@ -410,25 +405,22 @@ def test_sharded_render_with_fused_march_kernels():
         coarse_stride=8, probe_groups=8, visible_samples_budget=None,
     )
 
-    def local_render(params, grid, o, d, use_pallas):
+    def local_render(params, grid, o, d):
         colors, opacities, _, _ = render_rays(
             params, field, o, d, grid=grid, render_bkgd=jnp.ones(3),
-            samples_budget=(o.shape[0] * 32), use_pallas=use_pallas,
-            **kwargs,
+            samples_budget=(o.shape[0] * 32), **kwargs,
         )
         return colors, opacities
 
-    ref_c, ref_o = jax.jit(
-        lambda p, g, o, d: local_render(p, g, o, d, False)
-    )(params, grid, rays_o, rays_d)
+    ref_c, ref_o = jax.jit(local_render)(params, grid, rays_o, rays_d)
 
     sharded = jax.jit(
-        shard_map(
-            lambda p, g, o, d: local_render(p, g, o, d, True),
+        jax.shard_map(
+            local_render,
             mesh=mesh,
             in_specs=(P(), P(), P("data"), P("data")),
             out_specs=(P("data"), P("data")),
-            check_rep=False,
+            check_vma=False,
         )
     )
     params_r = jax.device_put(params, NamedSharding(mesh, P()))
